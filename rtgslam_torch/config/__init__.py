@@ -1,3 +1,4 @@
 from .loader import GroupParams, read_config
+from .params import OptimizationParams
 
-__all__ = ["GroupParams", "read_config"]
+__all__ = ["GroupParams", "OptimizationParams", "read_config"]

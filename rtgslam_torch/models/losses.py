@@ -1,7 +1,8 @@
-"""Image metrics for evaluation.
+"""Optimization losses and image metrics.
 
-Port of ``psnr`` (:32), ``ssim`` (:45) and ``ms_ssim`` (:72) from
-``rtgslam_tpu/models/losses.py`` (reference ``utils/loss_utils.py``: 11x11
+Port of ``l1_loss`` (:16), ``masked_mean`` (:24), ``psnr`` (:32), ``ssim``
+(:45) and ``ms_ssim`` (:72) from ``rtgslam_tpu/models/losses.py``
+(reference ``utils/loss_utils.py``: 11x11
 gaussian window, sigma 1.5, the standard stability constants).  The SSIM
 filter is a float32 depthwise convolution; ``setup_device`` keeps cuDNN
 off TF32 for it, as the JAX code asks for HIGHEST precision.
@@ -11,6 +12,19 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(a - b))
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over masked entries; 0 when the mask is empty."""
+    mask = mask.to(values.dtype)
+    denom = torch.sum(mask)
+    return torch.where(denom > 0,
+                       torch.sum(values * mask) / torch.clamp(denom, min=1.0),
+                       0.0)
 
 
 def psnr(img: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Frame preprocessing: vertex / normal / confidence maps, the bilateral
-depth filter and depth pyramids.
+depth filter, depth pyramids and the optimize passes' tile masks.
 
 Port of ``rtgslam_tpu/ops/preprocess.py`` (reference ``SLAM/utils.py``:
 vertex map :65, Sobel normals :100, confidence :125, bilateral filter
@@ -95,12 +95,22 @@ def bilateral_filter(depth: torch.Tensor, radius: int = 5,
     return out[..., None] if squeeze else out
 
 
-def maxpool(x: torch.Tensor, stride: int) -> torch.Tensor:
-    """Stride max-pool of an [H,W] map, zero-padded to a stride multiple."""
+def _pool(x: torch.Tensor, stride: int, reduce) -> torch.Tensor:
+    """Stride pooling of an [H,W] map, zero-padded to a stride multiple."""
     H, W = x.shape
     x = F.pad(x, (0, (-W) % stride, 0, (-H) % stride))
     Hp, Wp = x.shape
-    return x.reshape(Hp // stride, stride, Wp // stride, stride).amax(dim=(1, 3))
+    return reduce(x.reshape(Hp // stride, stride, Wp // stride, stride),
+                  dim=(1, 3))
+
+
+def maxpool(x: torch.Tensor, stride: int) -> torch.Tensor:
+    return _pool(x, stride, torch.amax)
+
+
+def meanpool(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """Zero-padded mean pool: edge tiles average over the padding too."""
+    return _pool(x, stride, torch.mean)
 
 
 def depth_pyramid(depth: torch.Tensor, levels: int):
@@ -113,3 +123,40 @@ def depth_pyramid(depth: torch.Tensor, levels: int):
         k = 1 << (levels - 1 - i)
         out.append(depth if k == 1 else maxpool(depth, k))
     return out
+
+
+# ---------------------------------------------------------------------------
+# tile masks of the optimize passes (``:150-180``, reference SLAM/utils.py
+# :695-734)
+# ---------------------------------------------------------------------------
+
+TILE = 16
+
+
+def pixelmask_to_tilemask(mask: torch.Tensor, stride: int = TILE) -> torch.Tensor:
+    """Tile active iff any pixel in it is set."""
+    return (maxpool(mask.to(torch.float32), stride) > 0).to(torch.int32)
+
+
+def transmission_to_tilemask(mask: torch.Tensor, stride: int = TILE,
+                             ratio: float = 0.5) -> torch.Tensor:
+    """Tile active iff the zero-padded mean of the pixel mask exceeds
+    ``ratio``."""
+    return (meanpool(mask.to(torch.float32), stride) > ratio).to(torch.int32)
+
+
+def colorerror_to_tilemask(error: torch.Tensor, stride: int = TILE,
+                           top_ratio: float = 0.4) -> torch.Tensor:
+    """The top ``top_ratio`` fraction of tiles by mean error: tiles at or
+    above the k-th largest mean (so the order of ties does not matter)."""
+    down = meanpool(error, stride)
+    k = max(int(down.numel() * top_ratio), 1)
+    thresh = torch.topk(down.reshape(-1), k).values[-1]
+    return (down >= torch.clamp(thresh, min=1e-12)).to(torch.int32)
+
+
+def tilemask_to_pixelmask(tile_mask: torch.Tensor, H: int, W: int,
+                          stride: int = TILE) -> torch.Tensor:
+    """Nearest-upsample a tile mask back to pixel resolution."""
+    up = tile_mask.repeat_interleave(stride, 0).repeat_interleave(stride, 1)
+    return up[:H, :W].to(torch.bool)

@@ -13,7 +13,7 @@ blocks; :func:`tile_origins` and :func:`scatter_tiles` map it to pixels.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -72,8 +72,10 @@ def depth_order(keys: torch.Tensor, V: int) -> torch.Tensor:
 
 
 def bin_gaussians(proj, height: int, width: int, block_capacity: int,
-                  tile_capacity: int, max_visible: int) -> Binning:
-    """Build per-tile front-to-back index lists (``bin_gaussians`` :92)."""
+                  tile_capacity: int, max_visible: int,
+                  tile_mask: Optional[torch.Tensor] = None) -> Binning:
+    """Build per-tile front-to-back index lists (``bin_gaussians`` :92).
+    ``tile_mask`` [tiles_y, tiles_x]: tiles at 0 get empty lists."""
     P = proj.depth.shape[0]
     V = min(max_visible, P)
     keys = torch.where(proj.visible, proj.depth, torch.inf)
@@ -86,14 +88,15 @@ def bin_gaussians(proj, height: int, width: int, block_capacity: int,
     valid = torch.arange(V, device=keys.device) < n_valid
     tile_lists, tile_counts, bin_overflow = bin_sorted(
         mean2d[:, 0], mean2d[:, 1], radius * radius, valid,
-        height, width, block_capacity, tile_capacity)
+        height, width, block_capacity, tile_capacity, tile_mask)
     return Binning(tile_lists=tile_lists, tile_counts=tile_counts, order=order,
                    n_visible=n_valid,
                    overflow=(n_visible - n_valid + bin_overflow).to(torch.int32))
 
 
 def bin_sorted(mx, my, r2, valid, height: int, width: int,
-               block_capacity: int, tile_capacity: int):
+               block_capacity: int, tile_capacity: int,
+               tile_mask: Optional[torch.Tensor] = None):
     """Block/tile binning of an already depth-sorted working set
     (``bin_sorted`` :138).  Returns (tile_lists [T, Kt] with sentinel V,
     tile_counts [T], block+tile overflow)."""
@@ -139,6 +142,9 @@ def bin_sorted(mx, my, r2, valid, height: int, width: int,
     ddx = gmx[:, None, :] - nx
     ddy = gmy[:, None, :] - ny
     hit_tile = (ddx * ddx + ddy * ddy) <= gr2[:, None, :]   # [B, 64, Kb]
+    if tile_mask is not None:
+        m = tile_mask_flat(tile_mask, height, width).reshape(B, -1)
+        hit_tile = hit_tile & (m[:, :, None] > 0)
     tile_total = hit_tile.sum(dim=2, dtype=torch.int32)
     tile_pos, tile_counts = compact_rows(hit_tile, tile_capacity, block_capacity)
     tile_overflow = (tile_total - tile_counts).sum(dtype=torch.int32)
@@ -151,6 +157,19 @@ def bin_sorted(mx, my, r2, valid, height: int, width: int,
         tile_pos.long())
     return (tile_lists.reshape(T, tile_capacity), tile_counts.reshape(T),
             block_overflow + tile_overflow)
+
+
+def tile_mask_flat(tile_mask: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """[tiles_y, tiles_x] mask -> [T] in the block-major flat tile layout of
+    tile_lists / tile_counts (``tile_mask_flat`` :232): zeroing the counts of
+    masked tiles after binning is blend-equivalent to binning with the mask."""
+    tiles_y, tiles_x = tile_grid_shape(height, width)
+    blocks_y, blocks_x = _block_grid(height, width)
+    padded = torch.zeros((blocks_y * TILES_PER_BLOCK, blocks_x * TILES_PER_BLOCK),
+                         dtype=torch.int32, device=tile_mask.device)
+    padded[:tiles_y, :tiles_x] = tile_mask.to(torch.int32)
+    m = padded.reshape(blocks_y, TILES_PER_BLOCK, blocks_x, TILES_PER_BLOCK)
+    return m.permute(0, 2, 1, 3).reshape(-1)
 
 
 def tile_origins(height: int, width: int, device=None) -> torch.Tensor:

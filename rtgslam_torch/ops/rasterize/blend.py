@@ -1,21 +1,30 @@
-"""Front-to-back alpha blending over per-tile depth-ordered lists.
+"""Front-to-back alpha blending over per-tile depth-ordered lists, and its
+backward.
 
-Port of ``rtgslam_tpu/ops/rasterize/blend.py`` (inference mode).  Two
-implementations of one function:
+Port of ``rtgslam_tpu/ops/rasterize/blend.py``.  Each function comes twice:
 
-* :func:`blend_tiles` — the wrapper of kernel K1 (``csrc/blend_fwd.cu``),
-  hand-written CUDA for Hopper.  It replaces the TPU kernel
-  ``rtgslam_tpu/ops/rasterize/pallas_blend.py::_kernel`` (and the XLA
-  ``blend_tiles`` it mirrors).  A CUDA tensor goes to the kernel or raises;
-  only a CPU tensor takes the plain version.
-* :func:`blend_tiles_reference` — the plain PyTorch twin: a per-chunk,
-  all-tiles-at-once transcription of ``blend.py::_blend_chunk`` (:228) with
-  the early-exit loop of :367-377.  Tests and ``chip_smoke.py`` hold K1
-  against it.
+* a wrapper of a hand-written CUDA kernel for Hopper — :func:`blend_tiles`
+  (kernel K1, ``csrc/blend_fwd.cu``; inference and residual modes),
+  :func:`blend_transmission` (K1's transmission mode) and :func:`blend_bwd`
+  (kernel K2, ``csrc/blend_bwd.cu``).  K1 replaces the TPU kernel
+  ``pallas_blend.py::_kernel``, K2 replaces ``pallas_blend.py::_bwd_kernel``.
+  A CUDA tensor goes to the kernel or raises; only a CPU tensor takes the
+  plain version;
+* its plain PyTorch twin — :func:`blend_tiles_reference`,
+  :func:`blend_transmission_reference`, :func:`blend_bwd_reference`: per-chunk,
+  all-tiles-at-once transcriptions of the JAX ``_blend_chunk`` (:228) with
+  the early-exit loop of :367-377, of ``blend_transmission`` (:482) and of
+  ``_fused_bwd`` (:726).  Tests and ``chip_smoke.py`` hold the kernels
+  against them.
+
+:class:`BlendFunction` is the differentiable blend of the optimize loop
+(``blend_tiles_fused`` :653): K1 in residual mode forward, K2 backward.
 
 Per-pixel outputs (contract of ``SLAM/render.py:110-133``): color, final T,
 the depth / index / weight of the first eligible entry with alpha >=
 opaque_threshold, and the index / weight of the largest-weight entry.
+
+``launches`` counts kernel launches per kernel mode; nothing else adds to it.
 """
 
 from __future__ import annotations
@@ -32,6 +41,16 @@ CHUNK = 128
 ALPHA_EPS = 1.0 / 255.0
 ALPHA_MAX = 0.99
 NFEAT = 11   # mean_x mean_y conic_a conic_b conic_c depth r g b opacity elig
+NTRANS = 6   # mean_x mean_y conic_a conic_b conic_c opacity
+NPIX = TILE * TILE
+
+launches = {"blend_fwd": 0, "blend_fwd_residual": 0,
+            "blend_fwd_transmission": 0, "blend_bwd": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
 
 
 class TileOutputs(NamedTuple):
@@ -47,113 +66,152 @@ class TileOutputs(NamedTuple):
 def tile_pixels(origins: torch.Tensor) -> torch.Tensor:
     """[T, 256, 2] pixel coordinates of each tile from its (x, y) origin
     (``blend.py::_tile_pixels``)."""
-    r = torch.arange(TILE, dtype=torch.float32, device=origins.device)
+    r = torch.arange(TILE, dtype=origins.dtype, device=origins.device)
     px = r.repeat(TILE)
     py = r.repeat_interleave(TILE)
     return torch.stack([px, py], dim=-1)[None] + origins[:, None, :]
 
 
-def _check_inputs(feat, order, tile_lists, tile_counts, origins):
-    V = order.shape[0]
+def _check(feat, ncols: int, tile_lists, origins, ints=()):
+    """Shapes, dtypes and devices shared by every blend entry point.  The
+    kernels take float32; the plain twins also take float64 on the CPU (the
+    gradient check)."""
     T, Kt = tile_lists.shape
-    if feat.shape != (V + 1, NFEAT):
-        raise ValueError(f"feat must be [V+1, {NFEAT}] = [{V + 1}, {NFEAT}], "
-                         f"got {tuple(feat.shape)}")
-    if tile_counts.shape != (T,) or origins.shape != (T, 2):
-        raise ValueError("tile_counts must be [T] and origins [T, 2]")
+    if feat.ndim != 2 or feat.shape[1] != ncols:
+        raise ValueError(f"feature rows must be [V+1, {ncols}], got "
+                         f"{tuple(feat.shape)}")
+    if origins.shape != (T, 2):
+        raise ValueError("origins must be [T, 2]")
     if Kt % min(CHUNK, Kt):
         raise ValueError("tile_capacity must be a multiple of 128 (or below)")
-    for name, x, dt in (("feat", feat, torch.float32),
-                        ("order", order, torch.int32),
+    fdt = feat.dtype
+    if fdt != torch.float32 and not (fdt == torch.float64
+                                     and feat.device.type == "cpu"):
+        raise TypeError(f"feature rows must be float32, got {fdt}")
+    for name, x, dt in (("origins", origins, fdt),
                         ("tile_lists", tile_lists, torch.int32),
-                        ("tile_counts", tile_counts, torch.int32),
-                        ("origins", origins, torch.float32)):
+                        *((n, x, torch.int32) for n, x in ints)):
         if x.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {x.dtype}")
         if x.device != feat.device:
             raise ValueError(f"{name} is on {x.device}, feat on {feat.device}")
+    if feat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the blend runs on cuda or cpu, not {feat.device}")
 
 
 _P = ctypes.c_void_p
-_lib = None
+_I = ctypes.c_int
+_F = ctypes.c_float
+_libs = {}
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = load_library("blend_fwd")
-        lib.rtg_blend_fwd.argtypes = [
-            _P, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float,
-            _P, _P, _P, _P, _P, _P, _P, _P]
-        lib.rtg_blend_fwd.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _kernel_lib(name: str = "blend_fwd") -> ctypes.CDLL:
+    """Build (at first use) and bind ``csrc/<name>.cu``."""
+    if name not in _libs:
+        lib = load_library(name)
+        if name == "blend_fwd":
+            lib.rtg_blend_fwd.argtypes = [
+                _P, _P, _I, _P, _P, _P, _I, _I, _F, _F] + [_P] * 8
+            lib.rtg_blend_fwd_residual.argtypes = [
+                _P, _P, _I, _P, _P, _P, _I, _I, _F, _F] + [_P] * 10
+            lib.rtg_blend_transmission.argtypes = [
+                _P, _I, _P, _P, _P, _I, _I, _F, _P, _P]
+            for fn in (lib.rtg_blend_fwd, lib.rtg_blend_fwd_residual,
+                       lib.rtg_blend_transmission):
+                fn.restype = _I
+        else:
+            lib.rtg_blend_bwd.argtypes = [
+                _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P]
+            lib.rtg_blend_bwd.restype = _I
+        _libs[name] = lib
+    return _libs[name]
 
+
+def _launch(fn, kernel: str, *args) -> None:
+    """Launch on the current stream; raise on a refused launch."""
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+    launches[kernel] += 1
+
+
+def _ptrs(*xs):
+    return tuple(x.data_ptr() for x in xs)
+
+
+# ---------------------------------------------------------------------------
+# forward blend: K1 inference / residual modes
+# ---------------------------------------------------------------------------
 
 def blend_tiles(
     feat: torch.Tensor,         # [V+1, 11] depth-sorted rows, row V = zeros
-    order: torch.Tensor,        # [V] int32 sorted position -> map slot
+    order: torch.Tensor,        # [V] int32 sorted position -> index map value
     tile_lists: torch.Tensor,   # [T, Kt] int32 sorted positions (sentinel V)
     tile_counts: torch.Tensor,  # [T] int32
     origins: torch.Tensor,      # [T, 2] float32 tile pixel origins
     opaque_threshold: float,
     T_threshold: float = 1e-4,
-) -> TileOutputs:
+    residuals: bool = False,
+):
     """Blend every tile (the JAX ``blend.blend_tiles`` call contract).
 
+    With ``residuals`` also returns what the backward replays, as
+    ``(TileOutputs, entry [T, Kt/chunk, 256], done [T] int32)``: each chunk's
+    entry transmittance (0 for chunks the tile never reached) and the number
+    of chunks processed — the contract of ``_fused_fwd`` (:669-716).
+
     CUDA tensors launch K1 on the current stream; CPU tensors run
-    :func:`blend_tiles_reference`.  ``blend_tiles.launches`` counts kernel
-    launches."""
-    _check_inputs(feat, order, tile_lists, tile_counts, origins)
+    :func:`blend_tiles_reference`."""
+    _check(feat, NFEAT, tile_lists, origins,
+           (("order", order), ("tile_counts", tile_counts)))
+    T, Kt = tile_lists.shape
+    if order.shape[0] != feat.shape[0] - 1 or tile_counts.shape != (T,):
+        raise ValueError("order must be [V] and tile_counts [T]")
     if feat.device.type == "cpu":
         return blend_tiles_reference(feat, order, tile_lists, tile_counts,
-                                     origins, opaque_threshold, T_threshold)
-    if feat.device.type != "cuda":
-        raise ValueError(f"blend_tiles runs on cuda or cpu, not {feat.device}")
+                                     origins, opaque_threshold, T_threshold,
+                                     residuals)
     feat, order, tile_lists, tile_counts, origins = (
         x.contiguous() for x in (feat, order, tile_lists, tile_counts, origins))
-    T, Kt = tile_lists.shape
-    npx = TILE * TILE
     f32 = dict(dtype=torch.float32, device=feat.device)
     i32 = dict(dtype=torch.int32, device=feat.device)
     out = TileOutputs(
-        color=torch.empty((T, npx, 3), **f32),
-        depth=torch.empty((T, npx), **f32),
-        depth_index=torch.empty((T, npx), **i32),
-        color_index=torch.empty((T, npx), **i32),
-        depth_weight=torch.empty((T, npx), **f32),
-        color_weight=torch.empty((T, npx), **f32),
-        T_final=torch.empty((T, npx), **f32),
+        color=torch.empty((T, NPIX, 3), **f32),
+        depth=torch.empty((T, NPIX), **f32),
+        depth_index=torch.empty((T, NPIX), **i32),
+        color_index=torch.empty((T, NPIX), **i32),
+        depth_weight=torch.empty((T, NPIX), **f32),
+        color_weight=torch.empty((T, NPIX), **f32),
+        T_final=torch.empty((T, NPIX), **f32),
     )
     lib = _kernel_lib()
+    head = (*_ptrs(feat, order), order.shape[0],
+            *_ptrs(tile_lists, tile_counts, origins), T, Kt,
+            float(opaque_threshold), float(T_threshold), *_ptrs(*out))
     with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rtg_blend_fwd(
-            feat.data_ptr(), order.data_ptr(), order.shape[0],
-            tile_lists.data_ptr(), tile_counts.data_ptr(), origins.data_ptr(),
-            T, Kt, float(opaque_threshold), float(T_threshold),
-            *(x.data_ptr() for x in out), stream)
-    if rc != 0:
-        raise RuntimeError(f"blend_fwd kernel launch failed: cudaError {rc}")
-    blend_tiles.launches += 1
-    return out
-
-
-blend_tiles.launches = 0
+        if not residuals:
+            if T:
+                _launch(lib.rtg_blend_fwd, "blend_fwd", *head)
+            return out
+        entry = torch.empty((T, Kt // min(CHUNK, Kt), NPIX), **f32)
+        done = torch.empty((T,), **i32)
+        if T:
+            _launch(lib.rtg_blend_fwd_residual, "blend_fwd_residual", *head,
+                    *_ptrs(entry, done))
+    return out, entry, done
 
 
 def blend_tiles_reference(feat, order, tile_lists, tile_counts, origins,
-                          opaque_threshold, T_threshold=1e-4) -> TileOutputs:
+                          opaque_threshold, T_threshold=1e-4,
+                          residuals=False):
     """Plain PyTorch twin of :func:`blend_tiles` (same arguments).
 
     Chunk by chunk over all still-active tiles at once: a tile takes chunk
     ``c`` while ``c`` is below its chunk count and its max T exceeds
     ``T_threshold``.  Transmittance is the JAX log-space exclusive product,
     ``exp(excl_cumsum(log1p(-alpha)))``."""
-    device = feat.device
+    device, dt = feat.device, feat.dtype
     T_tiles, Kt = tile_lists.shape
-    npx = TILE * TILE
     chunk = min(CHUNK, Kt)
     lists = tile_lists.long()
     order_pad = torch.cat([order, order.new_full((1,), -1)])
@@ -161,32 +219,29 @@ def blend_tiles_reference(feat, order, tile_lists, tile_counts, origins,
     tile_gidx = order_pad[lists]                      # [T, Kt]
     pix = tile_pixels(origins)                        # [T, 256, 2]
     n_chunks = (tile_counts.long() + chunk - 1) // chunk
-    tri = torch.triu(torch.ones(chunk, chunk, device=device), diagonal=1)
+    tri = torch.triu(torch.ones(chunk, chunk, dtype=dt, device=device),
+                     diagonal=1)
 
-    Tm = torch.ones((T_tiles, npx), device=device)
-    color = torch.zeros((T_tiles, npx, 3), device=device)
-    depth = torch.zeros((T_tiles, npx), device=device)
-    didx = torch.full((T_tiles, npx), -1, dtype=torch.int32, device=device)
-    dw = torch.zeros((T_tiles, npx), device=device)
-    cidx = torch.full((T_tiles, npx), -1, dtype=torch.int32, device=device)
-    cw = torch.zeros((T_tiles, npx), device=device)
+    Tm = torch.ones((T_tiles, NPIX), dtype=dt, device=device)
+    color = torch.zeros((T_tiles, NPIX, 3), dtype=dt, device=device)
+    depth = torch.zeros((T_tiles, NPIX), dtype=dt, device=device)
+    didx = torch.full((T_tiles, NPIX), -1, dtype=torch.int32, device=device)
+    dw = torch.zeros((T_tiles, NPIX), dtype=dt, device=device)
+    cidx = torch.full((T_tiles, NPIX), -1, dtype=torch.int32, device=device)
+    cw = torch.zeros((T_tiles, NPIX), dtype=dt, device=device)
+    entry = torch.zeros((T_tiles, Kt // chunk, NPIX), dtype=dt, device=device)
+    done = torch.zeros((T_tiles,), dtype=torch.int32, device=device)
 
     for c in range(Kt // chunk):
         active = (c < n_chunks) & (Tm.amax(dim=1) > T_threshold)
         a = torch.nonzero(active).squeeze(1)
         if a.numel() == 0:
             break
+        entry[a, c] = Tm[a]
+        done[a] += 1
         f = tile_feat[a, c * chunk:(c + 1) * chunk]   # [A, C, 11]
         g = tile_gidx[a, c * chunk:(c + 1) * chunk]   # [A, C]
-        dx = pix[a, :, 0, None] - f[:, None, :, 0]    # [A, 256, C]
-        dy = pix[a, :, 1, None] - f[:, None, :, 1]
-        power = -0.5 * (f[:, None, :, 2] * dx * dx
-                        + f[:, None, :, 4] * dy * dy) \
-            - f[:, None, :, 3] * dx * dy
-        alpha = f[:, None, :, 9] * torch.exp(torch.clamp(power, max=0.0))
-        alpha = torch.where(power > 0, 0.0, alpha)
-        alpha = torch.clamp(alpha, max=ALPHA_MAX)
-        alpha = torch.where(alpha < ALPHA_EPS, 0.0, alpha)
+        alpha, _, _, _, _ = _chunk_alphas(f, pix[a])
         opaque = (f[:, None, :, 10] > 0.5) & (alpha >= opaque_threshold)
 
         excl = torch.exp(torch.log1p(-alpha) @ tri)   # exclusive product
@@ -197,8 +252,8 @@ def blend_tiles_reference(feat, order, tile_lists, tile_counts, origins,
         has_hit = opaque.any(dim=2)
         first = torch.argmax(opaque.to(torch.uint8), dim=2, keepdim=True)
         new_hit = has_hit & (didx[a] < 0)
-        zc = f[:, :, 5][:, None, :].expand(-1, npx, -1)
-        gc = g[:, None, :].expand(-1, npx, -1)
+        zc = f[:, :, 5][:, None, :].expand(-1, NPIX, -1)
+        gc = g[:, None, :].expand(-1, NPIX, -1)
         depth[a] = torch.where(new_hit, zc.gather(2, first)[..., 0], depth[a])
         didx[a] = torch.where(new_hit, gc.gather(2, first)[..., 0], didx[a])
         dw[a] = torch.where(new_hit, w.gather(2, first)[..., 0], dw[a])
@@ -211,6 +266,245 @@ def blend_tiles_reference(feat, order, tile_lists, tile_counts, origins,
 
         Tm[a] = T_a * excl[..., -1] * (1.0 - alpha[..., -1])
 
-    return TileOutputs(color=color, depth=depth, depth_index=didx,
-                       color_index=cidx, depth_weight=dw, color_weight=cw,
-                       T_final=Tm)
+    out = TileOutputs(color=color, depth=depth, depth_index=didx,
+                      color_index=cidx, depth_weight=dw, color_weight=cw,
+                      T_final=Tm)
+    return (out, entry, done) if residuals else out
+
+
+def _chunk_alphas(f, pix):
+    """alpha of one chunk's entries ``f`` [A, C, >=10 or 6 cols] at the
+    tiles' pixels ``pix`` [A, 256, 2] (``_chunk_alphas_vjp`` :609).
+    Returns (alpha, exp term, gradient gate, dx, dy), each [A, 256, C]."""
+    opa = f[:, None, :, 9] if f.shape[-1] == NFEAT else f[:, None, :, 5]
+    dx = pix[:, :, 0, None] - f[:, None, :, 0]
+    dy = pix[:, :, 1, None] - f[:, None, :, 1]
+    power = -0.5 * (f[:, None, :, 2] * dx * dx + f[:, None, :, 4] * dy * dy) \
+        - f[:, None, :, 3] * dx * dy
+    e = torch.exp(torch.clamp(power, max=0.0))
+    raw = opa * e
+    gate = (power <= 0) & (raw >= ALPHA_EPS) & (raw < ALPHA_MAX)
+    alpha = torch.where((power > 0) | (raw < ALPHA_EPS), 0.0,
+                        torch.clamp(raw, max=ALPHA_MAX))
+    return alpha, e, gate, dx, dy
+
+
+# ---------------------------------------------------------------------------
+# transmission only: K1 transmission mode
+# ---------------------------------------------------------------------------
+
+def blend_transmission(
+    cols: torch.Tensor,         # [V+1, 6] depth-sorted rows, row V = zeros
+    tile_lists: torch.Tensor,   # [T, Kt] int32 sorted positions (sentinel V)
+    tile_counts: torch.Tensor,  # [T] int32
+    origins: torch.Tensor,      # [T, 2] float32
+    T_threshold: float = 1e-4,
+) -> torch.Tensor:
+    """Per-pixel final transmittance only, [T, 256] (``blend_transmission``
+    :482): the optimize masks' render.  Rows hold mean_x, mean_y, conic
+    a/b/c and opacity.  ``T != 1`` is exact on both paths: T is 1 iff every
+    alpha of the pixel is 0."""
+    _check(cols, NTRANS, tile_lists, origins, (("tile_counts", tile_counts),))
+    T, Kt = tile_lists.shape
+    if tile_counts.shape != (T,):
+        raise ValueError("tile_counts must be [T]")
+    if cols.device.type == "cpu":
+        return blend_transmission_reference(cols, tile_lists, tile_counts,
+                                            origins, T_threshold)
+    cols, tile_lists, tile_counts, origins = (
+        x.contiguous() for x in (cols, tile_lists, tile_counts, origins))
+    out = torch.empty((T, NPIX), dtype=torch.float32, device=cols.device)
+    with torch.cuda.device(cols.device):
+        if T:
+            _launch(_kernel_lib().rtg_blend_transmission,
+                    "blend_fwd_transmission", cols.data_ptr(),
+                    cols.shape[0] - 1, *_ptrs(tile_lists, tile_counts, origins),
+                    T, Kt, float(T_threshold), out.data_ptr())
+    return out
+
+
+def blend_transmission_reference(cols, tile_lists, tile_counts, origins,
+                                 T_threshold=1e-4):
+    """Plain PyTorch twin of :func:`blend_transmission`: the JAX per-chunk
+    log-space product ``T * exp(sum(log1p(-alpha)))`` (:527)."""
+    T_tiles, Kt = tile_lists.shape
+    chunk = min(CHUNK, Kt)
+    tile_cols = cols[tile_lists.long()]              # [T, Kt, 6]
+    pix = tile_pixels(origins)
+    n_chunks = (tile_counts.long() + chunk - 1) // chunk
+    Tm = torch.ones((T_tiles, NPIX), dtype=cols.dtype, device=cols.device)
+    for c in range(Kt // chunk):
+        active = (c < n_chunks) & (Tm.amax(dim=1) > T_threshold)
+        a = torch.nonzero(active).squeeze(1)
+        if a.numel() == 0:
+            break
+        alpha = _chunk_alphas(tile_cols[a, c * chunk:(c + 1) * chunk],
+                              pix[a])[0]
+        Tm[a] = Tm[a] * torch.exp(torch.sum(torch.log1p(-alpha), dim=2))
+    return Tm
+
+
+# ---------------------------------------------------------------------------
+# backward blend: K2
+# ---------------------------------------------------------------------------
+
+def blend_bwd(
+    feat: torch.Tensor,         # [V+1, 11] the forward's rows
+    order: torch.Tensor,        # [V] int32
+    tile_lists: torch.Tensor,   # [T, Kt] int32
+    origins: torch.Tensor,      # [T, 2]
+    entry: torch.Tensor,        # [T, Kt/chunk, 256] the forward's entry T
+    done: torch.Tensor,         # [T] int32 chunks the forward processed
+    g_color: torch.Tensor,      # [T, 256, 3] cotangent of color
+    g_depth: torch.Tensor,      # [T, 256]
+    tfin_gt: torch.Tensor,      # [T, 256] T_final * cotangent of T_final
+    depth_index: torch.Tensor,  # [T, 256] int32 the forward's depth hits
+    opaque_threshold: float,
+) -> torch.Tensor:
+    """d loss / d feat [V+1, 11] of the blend (``_fused_bwd`` :726 and the
+    TPU kernel ``blend_bwd_pallas`` :308), summed over every tile list the
+    row appears in; the elig column gets 0.
+
+    CUDA tensors launch K2 on the current stream (it ``atomicAdd``s each
+    tile's per-entry sums, so the summation order varies between runs);
+    CPU tensors run :func:`blend_bwd_reference`."""
+    _check(feat, NFEAT, tile_lists, origins,
+           (("order", order), ("done", done), ("depth_index", depth_index)))
+    T, Kt = tile_lists.shape
+    shapes = {"entry": (entry, (T, Kt // min(CHUNK, Kt), NPIX)),
+              "done": (done, (T,)), "g_color": (g_color, (T, NPIX, 3)),
+              "g_depth": (g_depth, (T, NPIX)), "tfin_gt": (tfin_gt, (T, NPIX)),
+              "depth_index": (depth_index, (T, NPIX))}
+    for name, (x, shape) in shapes.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.device != feat.device:
+            raise ValueError(f"{name} is on {x.device}, feat on {feat.device}")
+        if x.is_floating_point() and x.dtype != feat.dtype:
+            raise TypeError(f"{name} must be {feat.dtype}, got {x.dtype}")
+    if feat.device.type == "cpu":
+        return blend_bwd_reference(feat, order, tile_lists, origins, entry,
+                                   done, g_color, g_depth, tfin_gt,
+                                   depth_index, opaque_threshold)
+    args = [x.contiguous() for x in (feat, order, tile_lists, origins, entry,
+                                     done, g_color, g_depth, tfin_gt,
+                                     depth_index)]
+    # atomics accumulate into it, so it starts at zero
+    g_feat = torch.zeros_like(args[0])
+    with torch.cuda.device(feat.device):
+        if T:
+            _launch(_kernel_lib("blend_bwd").rtg_blend_bwd, "blend_bwd",
+                    *_ptrs(*args[:2]), order.shape[0], *_ptrs(*args[2:]),
+                    T, Kt, float(opaque_threshold), g_feat.data_ptr())
+    return g_feat
+
+
+def blend_bwd_reference(feat, order, tile_lists, origins, entry, done,
+                        g_color, g_depth, tfin_gt, depth_index,
+                        opaque_threshold):
+    """Plain PyTorch twin of :func:`blend_bwd` (same arguments): the chunks
+    from the last one processed down to 0, over all tiles that processed a
+    chunk at once, with the JAX ``_fused_bwd`` math — log-space transmittance
+    from the entry T, suffix sums as a triangular matmul, the pixel
+    reductions summed directly (the moment-basis matmul is a TPU layout
+    device and is not carried over).  Per-entry gradients are index-added
+    into the feature table's rows."""
+    dt = feat.dtype
+    T_tiles, Kt = tile_lists.shape
+    chunk = min(CHUNK, Kt)
+    lists = tile_lists.long()
+    order_pad = torch.cat([order, order.new_full((1,), -1)])
+    pix = tile_pixels(origins)
+    tri_lo = torch.tril(torch.ones(chunk, chunk, dtype=dt, device=feat.device),
+                        diagonal=-1)   # row j feeds column i < j: suffix-excl
+    tri_up = tri_lo.T.contiguous()     # row j feeds column i > j: prefix-excl
+    s_carry = torch.zeros((T_tiles, NPIX), dtype=dt, device=feat.device)
+    g_feat = torch.zeros_like(feat)
+    n_done = done.long()
+    for c in range(int(n_done.max()) - 1 if T_tiles else -1, -1, -1):
+        a = torch.nonzero(n_done > c).squeeze(1)
+        rows = lists[a, c * chunk:(c + 1) * chunk]            # [A, C]
+        f = feat[rows]                                        # [A, C, 11]
+        gidx = order_pad[rows]
+        alpha, e, gate, dx, dy = _chunk_alphas(f, pix[a])
+        opaque = (f[:, None, :, 10] > 0.5) & (alpha >= opaque_threshold)
+
+        excl = torch.exp(torch.log1p(-alpha) @ tri_up)
+        T_in = entry[a, c][:, :, None] * excl                 # [A, 256, C]
+        w = alpha * T_in
+        gc = g_color[a]                                       # [A, 256, 3]
+        rgbdot = gc @ f[:, :, 6:9].transpose(1, 2)            # [A, 256, C]
+        wg = w * rgbdot
+        s_total = wg @ tri_lo + s_carry[a][:, :, None]
+        galpha = T_in * rgbdot - (s_total + tfin_gt[a][:, :, None]) / (1.0 - alpha)
+        galpha = torch.where(gate, galpha, 0.0)
+        gpow = galpha * alpha
+
+        ca, cb, cc = (f[:, None, :, k] for k in (2, 3, 4))
+        didx = depth_index[a][:, :, None]
+        hit = opaque & (gidx[:, None, :] == didx) & (didx >= 0)
+        g_rgb = w.transpose(1, 2) @ gc                        # [A, C, 3]
+        g_chunk = torch.stack([
+            torch.sum(gpow * (ca * dx + cb * dy), dim=1),
+            torch.sum(gpow * (cc * dy + cb * dx), dim=1),
+            torch.sum(gpow * (-0.5 * dx * dx), dim=1),
+            torch.sum(gpow * (-dx * dy), dim=1),
+            torch.sum(gpow * (-0.5 * dy * dy), dim=1),
+            torch.sum(torch.where(hit, g_depth[a][:, :, None], 0.0), dim=1),
+            g_rgb[..., 0], g_rgb[..., 1], g_rgb[..., 2],
+            torch.sum(galpha * e, dim=1),
+            torch.zeros_like(gpow[:, 0]),
+        ], dim=-1)                                            # [A, C, 11]
+        g_feat.index_add_(0, rows.reshape(-1), g_chunk.reshape(-1, NFEAT))
+        s_carry[a] = s_carry[a] + torch.sum(wg, dim=2)
+    # the sentinel row is a constant, not a feature
+    g_feat[-1] = 0.0
+    return g_feat
+
+
+# ---------------------------------------------------------------------------
+# the differentiable blend of the optimize loop
+# ---------------------------------------------------------------------------
+
+class BlendFunction(torch.autograd.Function):
+    """``blend_tiles_fused`` (:653): the forward is :func:`blend_tiles` in
+    residual mode (K1), the backward :func:`blend_bwd` (K2).  Differentiable
+    in ``feat`` only, through color, depth and T_final; the index maps and
+    hit weights are not differentiable (:602-604).
+
+    ``BlendFunction.apply(feat, order, tile_lists, tile_counts, origins,
+    opaque_threshold, T_threshold)`` returns the seven TileOutputs fields."""
+
+    @staticmethod
+    def forward(ctx, feat, order, tile_lists, tile_counts, origins,
+                opaque_threshold, T_threshold):
+        out, entry, done = blend_tiles(feat, order, tile_lists, tile_counts,
+                                       origins, opaque_threshold, T_threshold,
+                                       residuals=True)
+        ctx.save_for_backward(feat, order, tile_lists, origins, entry, done,
+                              out.T_final, out.depth_index)
+        ctx.opaque_threshold = opaque_threshold
+        ctx.mark_non_differentiable(out.depth_index, out.color_index,
+                                    out.depth_weight, out.color_weight)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, g_color, g_depth, _gdi, _gci, _gdw, _gcw, g_T):
+        feat, order, tile_lists, origins, entry, done, T_fin, didx = \
+            ctx.saved_tensors
+        zero = torch.zeros_like(T_fin)
+        g_color = zero[..., None].expand(-1, -1, 3) if g_color is None else g_color
+        g_feat = blend_bwd(
+            feat, order, tile_lists, origins, entry, done, g_color,
+            zero if g_depth is None else g_depth,
+            zero if g_T is None else T_fin * g_T,
+            didx, ctx.opaque_threshold)
+        return g_feat, None, None, None, None, None, None
+
+
+def blend_tiles_fused(feat, order, tile_lists, tile_counts, origins,
+                      opaque_threshold, T_threshold=1e-4) -> TileOutputs:
+    """The differentiable blend as a :class:`TileOutputs`."""
+    return TileOutputs(*BlendFunction.apply(
+        feat, order, tile_lists, tile_counts, origins, opaque_threshold,
+        T_threshold))

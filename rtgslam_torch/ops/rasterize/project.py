@@ -98,8 +98,11 @@ def shade_cols(xyz, shs_flat, normal, campos, sh_degree: int,
     inv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz + 1e-12)
     dx, dy, dz = dx * inv, dy * inv, dz * inv
     r, g, b = sh_utils.eval_sh_flat(sh_degree, shs_flat, dx, dy, dz)
-    r = torch.clamp(r + 0.5, min=0.0)
-    g = torch.clamp(g + 0.5, min=0.0)
-    b = torch.clamp(b + 0.5, min=0.0)
+    # torch.maximum, not clamp: at r + 0.5 == 0 it splits the gradient
+    # 0.5 / 0.5 as jnp.maximum does, where clamp passes all of it
+    zero = r.new_zeros(())
+    r = torch.maximum(r + 0.5, zero)
+    g = torch.maximum(g + 0.5, zero)
+    b = torch.maximum(b + 0.5, zero)
     ndot = normal[..., 0] * dx + normal[..., 1] * dy + normal[..., 2] * dz
     return r, g, b, torch.abs(ndot) >= normal_threshold

@@ -1,19 +1,21 @@
-"""Mapping back-end: incremental Gaussian map construction.
+"""Mapping back-end: incremental Gaussian map construction + optimization.
 
-Port of ``rtgslam_tpu/slam/mapper.py`` for the forward slice, i.e. with no
-gradient map optimization.  Per mapped frame (reference
+Port of ``rtgslam_tpu/slam/mapper.py``.  Per mapped frame (reference
 ``SLAM/multiprocess/mapper.py``):
 
-  gaussians_add   three-type spawning (newly observed / depth-error /
-                  color-error pixels) -> dedup -> stable-attach -> KNN scale
-                  init -> insert into free slots, with the model/stable renders
-  local_optimize  at zero iterations: the history merge of the unstable rows
-  lifecycle       fix confident -> error strikes -> delete, with its render
+  gaussians_add        three-type spawning (newly observed / depth-error /
+                       color-error pixels) -> dedup -> stable-attach -> KNN
+                       scale init -> insert into free slots, with the
+                       model/stable renders
+  local_optimize       gradient optimization of the unstable pool over the
+                       recent-frame memory, then the history merge
+  global_optimization  keyframe-window refinement of the stable pool; at the
+                       end of the run, the final pass over every keyframe
+  lifecycle            fix confident -> error strikes -> delete, with its render
 
 Optimization frames (every ``gaussian_update_frame``-th) run these as
-separate steps; the others run ``map_ops.frame_chain``.  Gradient map
-optimization comes with the backward blend kernel: until then any
-iteration count above 0 is refused.
+separate steps; the others run ``map_ops.frame_chain``.  The gradient passes
+run through ``models/optimize.py`` (the blend kernels K1 and K2).
 """
 
 from __future__ import annotations
@@ -21,14 +23,14 @@ from __future__ import annotations
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import setup_device
 from ..data.camera import Camera
-from ..models import map_ops
+from ..models import map_ops, optimize
 from ..models.gaussian_map import (STABLE, UNSTABLE, GaussianMapConfig,
-                                   MapState, alive_mask, render_inputs,
-                                   unstable_mask)
+                                   MapState, alive_mask, render_inputs)
 from ..ops.rasterize import RasterSettings, render
 from ..utils.geometry import rot_compare, trans_compare
 
@@ -53,11 +55,12 @@ def generator_priorities(device, seed: int = 2024) -> PrioritySource:
 class Mapper:
     def __init__(self, args, device="cpu",
                  priority_source: Optional[PrioritySource] = None):
-        for name in ("gaussian_update_iter", "final_global_iter"):
-            if int(getattr(args, name)) > 0:
+        for name in ("optimize_freeze_binning", "multi_device"):
+            if bool(getattr(args, name, False)):
                 raise NotImplementedError(
-                    f"{name}={getattr(args, name)}: gradient optimization is "
-                    "ported with the backward blend kernel")
+                    f"{name}=True is not ported (ROADMAP.md, Open items: "
+                    "render_fixed_binning / optimize_freeze_binning and the "
+                    "multi-chip mesh)")
         self.args = args
         self.device = setup_device(device)
         self.config = GaussianMapConfig.from_args(args)
@@ -66,6 +69,9 @@ class Mapper:
         self.n_spawns = 0
 
         self.time = 0
+        self.gaussian_update_iter = int(args.gaussian_update_iter)
+        self.final_global_iter = int(args.final_global_iter)
+        self.optimize_compact = bool(getattr(args, "optimize_compact", False))
         self.gaussian_update_frame = int(args.gaussian_update_frame)
         self.memory_length = int(args.memory_length)
         self.global_keyframe_num = int(args.global_keyframe_num)
@@ -73,6 +79,12 @@ class Mapper:
         self.keyframe_theta_thes = float(args.keyframe_theta_thes)
         self.history_merge_max_weight = float(args.history_merge_max_weight)
         self.dataset_type = getattr(args, "type", "Replica")
+        self.feature_lr_coef = float(getattr(args, "feature_lr_coef", 1.0))
+        self.scaling_lr_coef = float(getattr(args, "scaling_lr_coef", 1.0))
+        self.rotation_lr_coef = float(getattr(args, "rotation_lr_coef", 1.0))
+        # the JAX mapper's numpy stream (mapper.py:118): the iterations'
+        # frame sequences and the final pass's keyframe order
+        self.rng = np.random.default_rng(2024)
 
         self.uniform_sample_num = int(args.uniform_sample_num)
         self.add_depth_thres = float(args.add_depth_thres)
@@ -86,6 +98,7 @@ class Mapper:
 
         self.processed_frames: deque = deque(maxlen=self.memory_length)
         self.keyframe_list: List[Dict] = []
+        self.optimize_frames_ids: List[int] = []   # frames that ran a pass
         self.settings: Optional[RasterSettings] = None
         self.model_map: Dict[str, torch.Tensor] = {}
         self.frame_map: Dict[str, torch.Tensor] = {}
@@ -202,14 +215,17 @@ class Mapper:
                 or l2_diff > self.keyframe_trans_thes)
 
     def check_keyframe(self, frame: Camera, frame_id: int) -> bool:
-        """Record a keyframe; True for every keyframe but the first
-        (``check_keyframe`` :373).  The keyframe's maps, which only the
-        gradient passes read, are not kept yet."""
+        """Record a keyframe with the maps the global passes optimize
+        against; True for every keyframe but the first (``check_keyframe``
+        :373)."""
         is_first = self.time == 0
         if not self._keyframe_predicate(frame):
             return False
-        self.keyframe_list.append({"frame": frame.drop_images(),
-                                   "frame_id": frame_id})
+        fm = self.frame_map
+        self.keyframe_list.append({
+            "frame": frame.drop_images(), "frame_id": frame_id,
+            "map": {"color_map": fm["color_map"], "depth_map": fm["depth_map"],
+                    "normal_map": fm["normal_map_w"]}})
         return not is_first
 
     def update_poses(self, new_poses) -> None:
@@ -223,22 +239,144 @@ class Mapper:
                 kf["frame"].update_pose(new_poses[kf["frame"].uid])
 
     # ------------------------------------------------------------------
-    # optimization at zero iterations
+    # optimization
     # ------------------------------------------------------------------
-    def local_optimize(self, frame: Camera):
-        """What the JAX local pass runs at ``gaussian_update_iter == 0``
-        (``optimize_execute`` :570-581): the history merge of the unstable
-        rows against a snapshot of the unchanged state."""
-        map_ops.history_merge(self.state, map_ops.capture_history(self.state),
-                              self.history_merge_max_weight,
-                              unstable_mask(self.state))
+    @staticmethod
+    def _lrs(opt, scale_overrides=None) -> Dict[str, float]:
+        """Per-group learning rates (``_lrs`` :407); a negative override
+        means 0."""
+        lrs = {
+            "xyz": opt.position_lr,
+            "features_dc": opt.feature_lr,
+            "features_rest": opt.feature_lr / 20.0,
+            "opacity": opt.opacity_lr,
+            "scaling": opt.scaling_lr,
+            "rotation": opt.rotation_lr,
+        }
+        for k, s in (scale_overrides or {}).items():
+            lrs[k] = lrs[k] * s if s >= 0 else 0.0
+        return lrs
 
-    def global_optimization(self, select_keyframe_num: int = -1):
-        """Keyframe-window or final global pass (``global_optimization``
-        :626).  At ``gaussian_update_iter == 0`` the windowed pass changes
-        nothing; at ``final_global_iter == 0`` the final pass is ``fix_all``."""
-        if select_keyframe_num == -1:
+    def _weights(self, opt, depth_weight=None) -> Dict[str, float]:
+        """Loss weights and the depth-loss threshold (``_weights`` :421)."""
+        return {
+            "color_weight": opt.color_weight,
+            "depth_weight": (opt.depth_weight if depth_weight is None
+                             else depth_weight),
+            "normal_weight": opt.normal_weight,
+            "add_depth_thres": self.add_depth_thres,
+        }
+
+    @staticmethod
+    def _stack_entries(entries):
+        return tuple(torch.stack([e[k] for e in entries])
+                     for k in ("color", "depth", "normal", "w2c", "K",
+                               "campos"))
+
+    def _entry(self, camera: Camera, color, depth, normal):
+        cam = camera.device_dict(self.device)
+        return {"color": color, "depth": depth[..., 0], "normal": normal,
+                "w2c": cam["w2c"], "K": cam["K"], "campos": cam["campos"]}
+
+    def _iteration_frames(self, n_actual: int, n_iters: int) -> np.ndarray:
+        """Random frame per iteration, the newest in the late half
+        (mapper.py:604-605)."""
+        seq = self.rng.integers(0, n_actual, size=n_iters)
+        seq[n_iters // 2 + 1:] = n_actual - 1
+        return seq
+
+    def _optimize(self, entries, seq, n_iters: int, lrs, weights, mode: str,
+                  sample_ratio: float, max_weight: float):
+        """One windowed pass: the compact two-stage path
+        (``_optimize_compact`` :485) or, with ``optimize_compact`` off, full
+        renders every iteration (``optimize_chain``)."""
+        stacked = self._stack_entries(entries)
+        mdp = self.dataset_type == "Scannetpp"
+        if not self.optimize_compact:
+            return optimize.optimize_chain(
+                self.state, *stacked, seq, n_iters, lrs, weights,
+                self.settings, mode, sample_ratio, mdp, max_weight)
+        prep = optimize.optimize_prepare(self.state, *stacked, self.settings,
+                                         mode, sample_ratio, mdp)
+        Ac = max(prep.n_pool, 1)
+        Tc = max(prep.n_live_tiles, 1)
+        return optimize.optimize_execute(
+            self.state, *stacked, prep.rmasks, prep.lists_orig, prep.counts,
+            prep.pool_order[:Ac], prep.n_pool, prep.tile_order[:, :Tc], seq,
+            n_iters, lrs, weights, self.settings, mode, max_weight,
+            optimize.list_crop(prep.cnt_max, prep.lists_orig.shape[-1]))
+
+    def local_optimize(self, frame: Camera, opt):
+        """Optimize the unstable pool over the frame memory, then merge it
+        with its history (``local_optimize`` :567).  The memory is padded to
+        ``memory_length`` by repeating the newest frame."""
+        entries = [self._entry(rec["camera"], rec["frame_map"]["color_map"],
+                               rec["frame_map"]["depth_map"],
+                               rec["frame_map"]["normal_map_w"])
+                   for rec in self.processed_frames]
+        n_actual = len(entries)
+        entries += [entries[-1]] * (self.memory_length - n_actual)
+        n_iters = self.gaussian_update_iter
+        return self._optimize(entries, self._iteration_frames(n_actual, n_iters),
+                              n_iters, self._lrs(opt), self._weights(opt),
+                              "local", -1.0, self.history_merge_max_weight)
+
+    def global_optimization(self, opt, select_keyframe_num: int = -1):
+        """Stable-map refinement over the newest keyframes; the final pass
+        (``select_keyframe_num == -1``) fixes every gaussian and sweeps all
+        keyframes in a shuffled order, ``final_global_iter`` iterations each
+        (``global_optimization`` :626)."""
+        is_final = select_keyframe_num == -1
+        if is_final:
             map_ops.fix_all(self.state)
+        if self.get_stable_num == 0:
+            return None
+        if is_final:
+            lrs = self._lrs(opt, {
+                "xyz": -1,
+                "features_dc": self.feature_lr_coef,
+                "features_rest": self.feature_lr_coef,
+                "scaling": self.scaling_lr_coef,
+                "rotation": self.rotation_lr_coef,
+            })
+            depth_weight = 0.0
+            select_keyframe_num = len(self.keyframe_list)
+        else:
+            lrs = self._lrs(opt, {k: 0.1 for k in
+                                  ("features_dc", "features_rest", "opacity",
+                                   "scaling", "rotation")})
+            lrs["xyz"] = 0.0
+            depth_weight = None
+        select_keyframe_num = min(select_keyframe_num, len(self.keyframe_list))
+        weights = self._weights(opt, depth_weight=depth_weight)
+        # newest first (mapper.py:647-649)
+        selected = [self.keyframe_list[-(i + 1)]
+                    for i in range(select_keyframe_num)]
+
+        def make_entry(kf):
+            m = kf["map"]
+            return self._entry(kf["frame"], m["color_map"], m["depth_map"],
+                               m["normal_map"])
+
+        if not is_final:
+            entries = [make_entry(kf) for kf in selected]
+            n_actual = len(entries)
+            entries += [entries[-1]] * (self.global_keyframe_num - n_actual)
+            n_iters = self.gaussian_update_iter
+            return self._optimize(
+                entries, self._iteration_frames(n_actual, n_iters), n_iters,
+                lrs, weights, "global",
+                float(getattr(self.args, "global_opt_top_ratio", 0.4)), 0.0)
+        report = None
+        for kf_idx in self.rng.permutation(select_keyframe_num):
+            n_iters = self.final_global_iter
+            report = optimize.optimize_chain(
+                self.state, *self._stack_entries(
+                    [make_entry(selected[int(kf_idx)])]),
+                np.zeros(n_iters, np.int64), n_iters, lrs, weights,
+                self.settings, "global", -1.0,
+                self.dataset_type == "Scannetpp", 0.0)
+        return report
 
     # ------------------------------------------------------------------
     # error-driven self-healing
@@ -262,8 +400,10 @@ class Mapper:
     # ------------------------------------------------------------------
     # top-level per-frame entry
     # ------------------------------------------------------------------
-    def mapping(self, frame: Camera, frame_map: Dict, frame_id: int) -> None:
-        """Map one tracked frame (``mapping`` :793)."""
+    def mapping(self, frame: Camera, frame_map: Dict, frame_id: int,
+                opt) -> None:
+        """Map one tracked frame (``mapping`` :793); ``opt`` holds the
+        optimization weights and learning rates (``OptimizationParams``)."""
         self._ensure_settings(frame)
         self.frame_map = frame_map
         optimize_frame = ((self.time + 1) % self.gaussian_update_frame == 0
@@ -275,17 +415,18 @@ class Mapper:
             return
         self.gaussians_add(frame)
         self.processed_frames.append(record)
+        self.optimize_frames_ids.append(frame_id)
 
         is_keyframe = self.check_keyframe(frame, frame_id)
         if self.dataset_type == "Scannetpp":
-            self.local_optimize(frame)
+            self.local_optimize(frame, opt)
             if is_keyframe:
-                self.global_optimization(self.global_keyframe_num)
+                self.global_optimization(opt, self.global_keyframe_num)
         else:
             if not is_keyframe or self.get_stable_num <= 0:
-                self.local_optimize(frame)
+                self.local_optimize(frame, opt)
             else:
-                self.global_optimization(self.global_keyframe_num)
+                self.global_optimization(opt, self.global_keyframe_num)
             map_ops.delete_gaussians(self.state, self.time,
                                      self.unstable_time_window, unstable=False)
         self.lifecycle()

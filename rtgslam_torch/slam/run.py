@@ -1,11 +1,13 @@
-"""The per-frame SLAM loop of the forward slice.
+"""The per-frame SLAM loop.
 
 ``run_sequence`` runs the order of ``slam.py``'s single-process loop
 (:125-157, non-band branch; ``bench.py::run_rep`` :114) and then its
 end-of-run steps (:163-193): update poses, the final global pass and the
-last keyframe's eval.  ``make_args`` is ``bench.py::make_args`` for this
-package: the Replica operating point sized to (H, W), with the two
-gradient-iteration counts at 0.
+last keyframe's eval.  ``make_args`` is ``bench.py::make_args(H, W,
+env_overrides=False)`` for this package: the Replica operating point sized
+to (H, W), 50 gradient iterations every 6th frame and 10 final-pass
+iterations per keyframe.  A caller that wants the forward-only loop sets
+``gaussian_update_iter`` and ``final_global_iter`` to 0.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import read_config
+from ..config import OptimizationParams, read_config
 from ..data.camera import Camera
 from .eval import eval_frame
 from .mapper import Mapper, PrioritySource
@@ -27,13 +29,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 
 def make_args(H: int, W: int):
-    """``bench.py::make_args(H, W, env_overrides=False)`` with
-    ``gaussian_update_iter = final_global_iter = 0``."""
+    """``bench.py::make_args(H, W, env_overrides=False)``."""
     args = read_config(os.path.join(REPO, "configs", "base.yaml"))
     args.memory_length = 5
-    args.gaussian_update_iter = 0
+    args.gaussian_update_iter = 50
     args.gaussian_update_frame = 6
-    args.final_global_iter = 0
     args.stable_confidence_thres = 100
     args.unstable_time_window = 120
     args.uniform_sample_num = int(40800 * (H * W) / (680 * 1200))
@@ -47,6 +47,7 @@ def make_args(H: int, W: int):
     args.block_capacity = 4096
     args.tile_capacity = 512
     args.max_visible = args.map_capacity // 2
+    args.optimize_freeze_binning = False
     return args
 
 
@@ -63,8 +64,10 @@ def run_sequence(args, cams: List[Camera], device="cpu",
     (psnr, depth_l1_cm, ...), the final stable / unstable counts, the
     per-frame (unstable, stable) counts, max bin overflow, the per-frame
     tracking / mapping milliseconds (host clock around work that ends in a
-    device synchronize) and the mapper."""
+    device synchronize), which frames ran a gradient pass, the final pass's
+    milliseconds and the mapper."""
     device = torch.device(device)
+    opt = OptimizationParams().extract(args)
     tracker = Tracker(args, device)
     mapper = Mapper(args, device, priority_source)
     track_ms, map_ms, counts = [], [], []
@@ -76,7 +79,7 @@ def run_sequence(args, cams: List[Camera], device="cpu",
         _sync(device)
         t1 = time.perf_counter()
         mapper.update_poses(tracker.get_new_poses())
-        mapper.mapping(cam, fm, i)
+        mapper.mapping(cam, fm, i, opt)
         mapper.get_render_output(cam)
         tracker.update_last_status(
             cam, mapper.model_map["render_depth"], mapper.frame_map["depth_map"],
@@ -89,7 +92,11 @@ def run_sequence(args, cams: List[Camera], device="cpu",
         map_ms.append((t2 - t1) * 1e3)
 
     mapper.update_poses(tracker.get_new_poses())
-    mapper.global_optimization()
+    _sync(device)
+    t0 = time.perf_counter()
+    mapper.global_optimization(opt)
+    _sync(device)
+    final_ms = (time.perf_counter() - t0) * 1e3
     eval_cam = cams[mapper.keyframe_list[-1]["frame"].uid]
     metrics = eval_frame(mapper, eval_cam)
     return {
@@ -103,5 +110,7 @@ def run_sequence(args, cams: List[Camera], device="cpu",
         "max_overflow": max(mapper.max_overflow, metrics["bin_overflow"]),
         "track_ms": track_ms,
         "map_ms": map_ms,
+        "optimize_frames": mapper.optimize_frames_ids,
+        "final_ms": final_ms,
         "mapper": mapper,
     }

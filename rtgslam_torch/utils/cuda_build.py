@@ -39,28 +39,45 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its hashed library is missing, then
-    load it (once per process)."""
+def build(*names: str) -> None:
+    """Compile every ``csrc/<name>.cu`` whose hashed library is missing, one
+    ``nvcc`` per source, all started together; then load each library (once
+    per process)."""
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        src = os.path.join(CSRC, name + ".cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-        info = {"seconds": 0.0, "ptxas": "", "path": path}
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
+        t0 = time.perf_counter()
+        jobs = []
+        for name in names:
+            if name in _libs:
+                continue
+            src = os.path.join(CSRC, name + ".cu")
+            with open(src, "rb") as f:
+                digest = hashlib.sha256(
+                    f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+            build_info[name] = {"seconds": 0.0, "ptxas": "", "path": path}
+            if not os.path.exists(path):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{path}.{os.getpid()}.tmp"
+                jobs.append((name, src, path, tmp, subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for name, src, path, tmp, proc in jobs:   # wait for every nvcc
+            _, stderr = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+                errors.append(f"nvcc failed on {src}:\n{stderr}")
+                continue
             os.replace(tmp, path)   # atomic: concurrent processes race safely
-            info.update(seconds=time.perf_counter() - t0, ptxas=proc.stderr)
-        _libs[name] = ctypes.CDLL(path)
-        build_info[name] = info
-        return _libs[name]
+            build_info[name].update(seconds=time.perf_counter() - t0,
+                                    ptxas=stderr)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        for name in names:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(build_info[name]["path"])
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    build(name)
+    return _libs[name]

@@ -109,16 +109,19 @@ def test_ate_is_a_copy():
 
 
 def test_make_args_matches_bench():
-    """The port's ``make_args`` is ``bench.make_args`` with the two
-    gradient-iteration counts at 0."""
+    """The port's ``make_args`` is ``bench.make_args(H, W,
+    env_overrides=False)``, gradient-iteration counts included (the output
+    path aside, and ``optimize_freeze_binning``, which bench reads from the
+    environment and the port pins off)."""
     sys.path.insert(0, REPO)
     import bench
     from rtgslam_torch.slam.run import make_args
 
     for H, W in ((170, 300), (680, 1200)):
         want, _ = bench.make_args(H, W, env_overrides=False)
-        want.gaussian_update_iter = want.final_global_iter = 0
         got = vars(make_args(H, W))
+        assert got["gaussian_update_iter"] == 50 and got["final_global_iter"] == 10
+        assert got["optimize_freeze_binning"] is False
         for k, v in vars(want).items():
             if k not in ("save_path", "optimize_freeze_binning"):
                 assert got[k] == v, k

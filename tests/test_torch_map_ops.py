@@ -283,9 +283,15 @@ def test_threefry_replays_jax_random():
 
 
 def test_mapper_refuses_gradient_iterations():
+    """Gradient iterations run; the one optimize variant not ported, the
+    frozen binning of ``optimize_freeze_binning`` without the compact path,
+    is refused with the ROADMAP item that holds it."""
     from rtgslam_torch.slam.mapper import Mapper
 
     args = read_config(os.path.join(REPO, "configs", "base.yaml"))
     args.map_capacity, args.temp_capacity = 1024, 256
-    with pytest.raises(NotImplementedError, match="backward blend kernel"):
+    assert int(args.gaussian_update_iter) > 0 and int(args.final_global_iter) > 0
+    Mapper(args)
+    args.optimize_freeze_binning = True
+    with pytest.raises(NotImplementedError, match="optimize_freeze_binning"):
         Mapper(args)

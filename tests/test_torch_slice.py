@@ -1,17 +1,27 @@
-"""Port parity: the forward SLAM slice end to end against the JAX
-``Tracker`` / ``Mapper`` loop, and the port's independence from JAX.
+"""Port parity: the SLAM loop end to end against the JAX ``Tracker`` /
+``Mapper`` loop, forward-only and with gradient optimization, and the
+port's independence from JAX.
 
-Configuration: conftest's ``base_args`` with ``gaussian_update_iter = 0``,
-``final_global_iter = 0``, ``tile_capacity = 1024`` and ``block_capacity =
-4096`` (bin overflow 0), pure-ICP frame-to-model tracking as at the bench
-point (``use_gt_pose = False``, ``icp_use_model_depth = True``), 4 frames of
-``synthetic_cams`` (96x128).  The port replays the JAX mapper's spawn
-priority stream, so both sample the same pixels.
+Configuration: conftest's ``base_args`` with ``tile_capacity = 1024`` and
+``block_capacity = 4096`` (bin overflow 0), pure-ICP frame-to-model tracking
+as at the bench point (``use_gt_pose = False``, ``icp_use_model_depth =
+True``), 4 frames of ``synthetic_cams`` (96x128).  The port replays the JAX
+mapper's spawn priority stream, so both sample the same pixels, and draws
+the optimize passes' frame sequences from the same numpy stream.
 
-Tolerances, each a few times what was measured on CPU (torch 2.13, jax
-0.9): per-frame poses 1e-4 (measured 1.8e-6), ATE 1e-3 cm (measured
-8e-5), PSNR 0.01 dB (3e-5), depth L1 0.01 cm (1e-7), gaussian counts per
-frame within 1% (measured equal), overflow equal.
+Forward-only (``gaussian_update_iter = final_global_iter = 0``), each
+tolerance a few times what was measured on CPU (torch 2.13, jax 0.9):
+per-frame poses 1e-4 (measured 1.8e-6), ATE 1e-3 cm (measured 8e-5), PSNR
+0.01 dB (3e-5), depth L1 0.01 cm (1e-7), gaussian counts per frame within
+1% (measured equal), overflow equal.
+
+With optimization (10 iterations on frames 0, 1 and 3 over a 3-frame
+memory, ``final_global_iter = 2``): Adam with eps 1e-15 turns rounding
+differences into lr-sized steps, so after 30 iterations the two maps differ
+elementwise and the comparison is end to end.  Measured on CPU: poses
+1.3e-4, ATE 2.9e-3 cm, PSNR 7e-3 dB, depth L1 2.1e-3 cm, counts equal;
+held to poses 1e-3, ATE 0.01 cm, PSNR 0.05 dB, depth L1 0.01 cm, gaussian
+counts per frame within 1%, overflow equal.
 """
 
 import copy
@@ -32,13 +42,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_FRAMES = 4
 
 
-@pytest.fixture(scope="module")
-def slice_runs(base_args, synthetic_cams):
+def _run_both(base_args, synthetic_cams, gaussian_update_iter,
+              final_global_iter):
     from rtgslam_torch.slam.run import run_sequence
 
     args = copy.copy(base_args)
-    args.gaussian_update_iter = 0
-    args.final_global_iter = 0
+    args.gaussian_update_iter = gaussian_update_iter
+    args.final_global_iter = final_global_iter
     args.tile_capacity = 1024
     args.block_capacity = 4096
     args.use_gt_pose = False
@@ -49,6 +59,18 @@ def slice_runs(base_args, synthetic_cams):
     out = run_sequence(args, tp.port_cameras(cams), "cpu",
                        tp.replay(tp.jax_priorities(N_FRAMES, H, W)))
     return out, ref
+
+
+@pytest.fixture(scope="module")
+def slice_runs(base_args, synthetic_cams):
+    return _run_both(base_args, synthetic_cams, 0, 0)
+
+
+@pytest.fixture(scope="module")
+def opt_runs(base_args, synthetic_cams):
+    assert base_args.gaussian_update_iter == 10
+    assert base_args.gaussian_update_frame == 2
+    return _run_both(base_args, synthetic_cams, 10, 2)
 
 
 def test_slice_poses_and_ate(slice_runs):
@@ -67,6 +89,31 @@ def test_slice_eval_quality(slice_runs):
 
 def test_slice_gaussian_counts_and_overflow(slice_runs):
     out, ref = slice_runs
+    for (u, s), (ru, rs) in zip(out["counts"], ref["counts"]):
+        assert abs((u + s) - (ru + rs)) <= 0.01 * (ru + rs)
+        assert abs(s - rs) <= 0.01 * max(rs, 1)
+    assert out["n_stable"] > 0 and out["n_unstable"] == ref["n_unstable"] == 0
+    assert abs(out["n_stable"] - ref["n_stable"]) <= 0.01 * ref["n_stable"]
+    assert out["max_overflow"] == ref["max_overflow"] == 0
+
+
+def test_opt_slice_poses_and_ate(opt_runs):
+    out, ref = opt_runs
+    assert out["optimize_frames"] == [0, 1, 3]
+    np.testing.assert_allclose(out["poses"], ref["poses"], atol=1e-3)
+    assert abs(out["ate_cm"] - ref["ate_cm"]) <= 0.01
+    assert out["eval_uid"] == ref["eval_uid"]
+
+
+def test_opt_slice_eval_quality(opt_runs):
+    out, ref = opt_runs
+    assert abs(out["eval"]["psnr"] - ref["eval"]["psnr"]) <= 0.05
+    assert abs(out["eval"]["depth_l1_cm"] - ref["eval"]["depth_l1_cm"]) <= 0.01
+    assert np.isfinite(out["eval"]["ssim"]) and np.isfinite(out["eval"]["ms_ssim"])
+
+
+def test_opt_slice_gaussian_counts_and_overflow(opt_runs):
+    out, ref = opt_runs
     for (u, s), (ru, rs) in zip(out["counts"], ref["counts"]):
         assert abs((u + s) - (ru + rs)) <= 0.01 * (ru + rs)
         assert abs(s - rs) <= 0.01 * max(rs, 1)

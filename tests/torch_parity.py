@@ -3,10 +3,13 @@
 The JAX package is the reference: these helpers run its slice loop and
 replay its random spawn priorities into the port.
 
-Run as a script to write the JAX-on-CPU reference of ``chip_smoke.py``'s
-170x300 phase:
+Run as a script to write the JAX-on-CPU references of ``chip_smoke.py``'s
+170x300 phases: the forward-only slice (both iteration counts at 0) and,
+with ``--optimize``, ``bench.make_args`` unchanged (50 iterations every 6th
+frame, 10 final-pass iterations per keyframe):
 
     JAX_PLATFORMS=cpu python tests/torch_parity.py --frames 12 --height 170 --width 300
+    JAX_PLATFORMS=cpu python tests/torch_parity.py --optimize --frames 12 --height 170 --width 300
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_JSON = os.path.join(REPO, "tests", "data", "slice_170x300_jax_cpu.json")
+REF_OPT_JSON = os.path.join(REPO, "tests", "data",
+                            "slice_opt_170x300_jax_cpu.json")
 
 
 def to_torch(x):
@@ -96,10 +101,33 @@ def zero_iteration_mapper(args):
     return ZeroIterationMapper(args)
 
 
+def jax_mapper(args):
+    """The JAX ``Mapper`` for a parity run: :func:`zero_iteration_mapper`
+    when both iteration counts are 0, else the real one with its background
+    compile threads off (they only warm XLA's cache for the next capacity
+    bucket and change no result)."""
+    from rtgslam_tpu.slam import Mapper
+
+    if int(args.gaussian_update_iter) == 0 == int(args.final_global_iter):
+        return zero_iteration_mapper(args)
+
+    class NoPrewarmMapper(Mapper):
+        def _maybe_prewarm_bucket(self, *a, **k):
+            pass
+
+        def _maybe_prewarm_execute(self, *a, **k):
+            pass
+
+        def _prewarm_prepare(self, *a, **k):
+            pass
+
+    return NoPrewarmMapper(args)
+
+
 def run_jax_sequence(args, cams):
     """The JAX package's slice loop: slam.py:125-157 per frame (non-band
     branch), then update poses, the final global pass and the last
-    keyframe's eval (slam.py:163-193), with :func:`zero_iteration_mapper`.
+    keyframe's eval (slam.py:163-193), with :func:`jax_mapper`.
     Same return keys as ``rtgslam_torch.slam.run.run_sequence``, without
     the timings."""
     from rtgslam_tpu.config import OptimizationParams
@@ -107,7 +135,7 @@ def run_jax_sequence(args, cams):
     from rtgslam_tpu.slam.eval import eval_frame
 
     opt = OptimizationParams().extract(args)
-    tracker, mapper = Tracker(args), zero_iteration_mapper(args)
+    tracker, mapper = Tracker(args), jax_mapper(args)
     counts = []
     for i, cam in enumerate(cams):
         fm = tracker.map_preprocess(cam, i)
@@ -141,8 +169,11 @@ def main():
     ap.add_argument("--frames", type=int, default=12)
     ap.add_argument("--height", type=int, default=170)
     ap.add_argument("--width", type=int, default=300)
-    ap.add_argument("--out", default=REF_JSON)
+    ap.add_argument("--optimize", action="store_true",
+                    help="keep bench.make_args' iteration counts")
+    ap.add_argument("--out", default=None)
     a = ap.parse_args()
+    out_path = a.out or (REF_OPT_JSON if a.optimize else REF_JSON)
 
     import jax
 
@@ -152,15 +183,19 @@ def main():
     from rtgslam_tpu.data.synthetic import make_cameras
 
     args, _ = bench.make_args(a.height, a.width, env_overrides=False)
-    args.gaussian_update_iter = 0
-    args.final_global_iter = 0
+    args.optimize_freeze_binning = False
+    config = "bench.make_args(H, W, env_overrides=False)"
+    if not a.optimize:
+        args.gaussian_update_iter = 0
+        args.final_global_iter = 0
+        config += ", gaussian_update_iter=0, final_global_iter=0"
     res = run_jax_sequence(args, make_cameras(n_frames=a.frames, H=a.height,
                                               W=a.width))
     ref = {
         "command": ("JAX_PLATFORMS=cpu python tests/torch_parity.py "
-                    f"--frames {a.frames} --height {a.height} --width {a.width}"),
-        "config": "bench.make_args(H, W, env_overrides=False), "
-                  "gaussian_update_iter=0, final_global_iter=0",
+                    + ("--optimize " if a.optimize else "")
+                    + f"--frames {a.frames} --height {a.height} --width {a.width}"),
+        "config": config,
         "frames": a.frames, "height": a.height, "width": a.width,
         "jax_version": jax.__version__,
         "ate_cm": res["ate_cm"],
@@ -173,8 +208,8 @@ def main():
         "max_overflow": res["max_overflow"],
         "poses": res["poses"].tolist(),
     }
-    os.makedirs(os.path.dirname(a.out), exist_ok=True)
-    with open(a.out, "w") as f:
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
         json.dump(ref, f, indent=1)
     print(json.dumps({k: ref[k] for k in ("ate_cm", "psnr", "depth_l1_cm",
                                           "n_stable", "n_unstable",
