@@ -4,9 +4,12 @@ Mirrors the layout and names of ``rtgslam_tpu`` so each module's
 counterpart is easy to find.  The JAX package is the reference; this
 package imports torch and numpy and nothing of JAX or of ``rtgslam_tpu``.
 
-This slice ports the forward SLAM path (tracking, map growth, rendering)
-with no gradient map optimization.  Its one hand-written kernel is K1, the
-forward tile blend (``csrc/blend_fwd.cu``, built at first use).
+It holds the single-process SLAM loop (tracking, map growth, rendering,
+the gradient map optimization), the dataset readers, PLY checkpoints and
+the eval, driven by ``slam_torch.py`` and ``metric_torch.py`` at the
+repository root.  Its hand-written kernels are K1, the forward tile blend
+(``csrc/blend_fwd.cu``), and K2, the backward tile blend
+(``csrc/blend_bwd.cu``), both built at first use.
 """
 
 import torch

@@ -1,4 +1,7 @@
-from .loader import GroupParams, read_config
-from .params import OptimizationParams
+from .loader import (GroupParams, merge_dicts, read_config, read_config_dict,
+                     save_config)
+from .params import DatasetParams, MapParams, OptimizationParams, ParamGroup
 
-__all__ = ["GroupParams", "OptimizationParams", "read_config"]
+__all__ = ["GroupParams", "merge_dicts", "read_config", "read_config_dict",
+           "save_config", "ParamGroup", "DatasetParams", "OptimizationParams",
+           "MapParams"]

@@ -1,21 +1,43 @@
 """Camera model.
 
-Numpy copy of ``rtgslam_tpu/data/camera.py`` (``Camera``), which imports
-JAX through ``rtgslam_tpu.utils``.  ``R`` is the camera-to-world rotation,
-``T`` the world-to-camera translation (colmap convention), as in the
-reference ``scene/cameras.py``.  ``device_dict`` gives the small pose and
-intrinsic tensors the render and track steps take.
+Numpy copy of ``rtgslam_tpu/data/camera.py`` (``CameraInfo``, ``Camera``,
+``load_camera``), which imports JAX through ``rtgslam_tpu.utils``.  ``R``
+is the camera-to-world rotation, ``T`` the world-to-camera translation
+(colmap convention), as in the reference ``scene/cameras.py``.
+``device_dict`` gives the small pose and intrinsic tensors the render and
+track steps take.  ``load_camera`` decodes with ``utils/image_io.py`` in
+place of OpenCV.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..utils import geometry
+from ..utils import geometry, image_io
+
+
+class CameraInfo(NamedTuple):
+    """Static description of one frame as produced by dataset readers."""
+
+    uid: int
+    R: np.ndarray
+    T: np.ndarray
+    FovX: float
+    FovY: float
+    image_path: str
+    depth_path: str
+    image_name: str
+    width: int
+    height: int
+    cx: float
+    cy: float
+    timestamp: float
+    depth_scale: float
+    pose_gt: np.ndarray
 
 
 @dataclass
@@ -51,12 +73,15 @@ class Camera:
     def camera_center(self) -> np.ndarray:
         return self.c2w[:3, 3]
 
+    def update(self, R: np.ndarray, T: np.ndarray) -> None:
+        self.R = R
+        self.T = T
+
     def update_pose(self, pose_c2w: np.ndarray) -> None:
         """Set the pose from a camera-to-world matrix (reference
         ``cameras.py:121-123``)."""
         pose_w2c = np.linalg.inv(pose_c2w)
-        self.R = pose_w2c[:3, :3].transpose()
-        self.T = pose_w2c[:3, 3]
+        self.update(pose_w2c[:3, :3].transpose(), pose_w2c[:3, 3])
 
     @property
     def intrinsic(self) -> np.ndarray:
@@ -86,3 +111,57 @@ class Camera:
         )
         clone.image_height, clone.image_width = self.image_height, self.image_width
         return clone
+
+
+def load_camera(args, uid: int, info: CameraInfo, resolution_scale: float = 1.0) -> Camera:
+    """Load a frame's RGBD payload into a ``Camera`` (``load_camera`` :166,
+    reference ``utils/camera_utils.py:22-77``); numpy arrays only, the
+    device copies happen where the frame is used."""
+    image = image_io.imread(info.image_path)
+    image = image.astype(np.float32) / 255.0
+
+    if info.depth_path and info.depth_path.endswith(".npy"):
+        depth = np.load(info.depth_path).astype(np.float32)
+    elif info.depth_path:
+        depth = image_io.imread(info.depth_path).astype(np.float32)
+    else:
+        depth = np.ones(image.shape[:2], dtype=np.float32)
+    depth = depth / info.depth_scale
+
+    # crop_edge: the reader already shrank width/height/cx/cy (TUM
+    # config.yaml crop_edge) — recover the per-side margin from the shape
+    # delta so pixels and intrinsics agree.  Per array, and only when BOTH
+    # axes carry the same even margin (color and depth streams may have
+    # different native resolutions).
+    def _maybe_crop(arr):
+        ch, cw = arr.shape[0] - info.height, arr.shape[1] - info.width
+        if ch > 0 and ch == cw and ch % 2 == 0:
+            c = ch // 2
+            return arr[c:-c, c:-c]
+        return arr
+
+    image = _maybe_crop(image)
+    depth = _maybe_crop(depth)
+
+    resolution = getattr(args, "resolution", 1)
+    scale = resolution * resolution_scale if resolution in (1, 2, 4, 8) else resolution_scale
+    if scale != 1:
+        new_w, new_h = round(image.shape[1] / scale), round(image.shape[0] / scale)
+        image = image_io.resize_area(image, new_w, new_h)
+        depth = image_io.resize_nearest(depth, new_w, new_h)
+
+    return Camera(
+        uid=uid,
+        R=info.R,
+        T=info.T,
+        FoVx=info.FovX,
+        FoVy=info.FovY,
+        image=np.clip(image[..., :3], 0.0, 1.0),
+        depth=depth[..., None] if depth.ndim == 2 else depth,
+        image_name=info.image_name,
+        cx=info.cx / resolution_scale,
+        cy=info.cy / resolution_scale,
+        timestamp=info.timestamp,
+        depth_scale=info.depth_scale,
+        pose_gt=info.pose_gt,
+    )

@@ -1,7 +1,10 @@
 """Procedural synthetic RGBD scenes with analytic ground truth.
 
 Numpy copy of ``rtgslam_tpu/data/synthetic.py`` (that module imports JAX
-through ``rtgslam_tpu.utils``); ``make_cameras`` returns the same arrays.
+through ``rtgslam_tpu.utils``); ``make_cameras`` returns the same arrays,
+and ``write_scene`` writes files that decode to the same arrays as the JAX
+one's, in the "ours" layout that ``data/dataset.py::read_ours_scene`` reads
+(color/ depth/ pose/ intrinsic/).
 
 A textured axis-aligned box room containing a few matte spheres, rendered by
 exact ray casting (no rasterizer involvement), with a smooth interior camera
@@ -12,6 +15,7 @@ renderer.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import List, Tuple
 
@@ -19,6 +23,7 @@ import numpy as np
 
 from .camera import Camera
 from ..utils.geometry import focal2fov
+from ..utils.image_io import write_png
 
 
 @dataclass
@@ -245,3 +250,36 @@ def make_cameras(n_frames: int = 20, H: int = 240, W: int = 320,
             pose_gt=c2w,
         ))
     return cams
+
+
+def write_intrinsics(out_dir: str, K: np.ndarray) -> None:
+    """Start an "ours" layout: its directories and the 4x4 intrinsics."""
+    for sub in ("color", "depth", "pose", "intrinsic"):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+    np.savetxt(os.path.join(out_dir, "intrinsic", "intrinsic_depth.txt"),
+               np.block([[K, np.zeros((3, 1))], [np.zeros((1, 3)), np.ones((1, 1))]]))
+
+
+def write_frame(out_dir: str, uid: int, color: np.ndarray, depth: np.ndarray,
+                c2w: np.ndarray) -> None:
+    """One frame in the "ours" layout, quantised as the JAX ``write_scene``
+    does: color [H, W, 3] in [0, 1] as uint8, depth [H, W] (or [H, W, 1])
+    in metres as uint16 millimetres, the camera-to-world pose as text."""
+    write_png(os.path.join(out_dir, "color", f"{uid}.png"),
+              (color * 255).astype(np.uint8))
+    d = depth[..., 0] if depth.ndim == 3 else depth
+    write_png(os.path.join(out_dir, "depth", f"{uid}.png"),
+              (d * 1000).astype(np.uint16))
+    np.savetxt(os.path.join(out_dir, "pose", f"{uid}.txt"), c2w)
+
+
+def write_scene(out_dir: str, n_frames: int = 20, H: int = 240, W: int = 320,
+                scene: RoomScene | None = None) -> str:
+    """Export in the "ours" layout (``write_scene`` :252)."""
+    scene = scene or RoomScene()
+    K = default_intrinsics(H, W)
+    write_intrinsics(out_dir, K)
+    for uid, c2w in enumerate(orbit_trajectory(scene, n_frames)):
+        color, depth = render_rgbd(scene, c2w, K, H, W)
+        write_frame(out_dir, uid, color, depth, c2w)
+    return out_dir

@@ -163,3 +163,36 @@ def stable_mask(state: MapState) -> torch.Tensor:
 def alive_mask(state: MapState) -> torch.Tensor:
     return state.status != FREE
 
+
+# ---------------------------------------------------------------------------
+# host-side import/export (checkpoints)
+# ---------------------------------------------------------------------------
+
+_PLY_FIELDS = ("xyz", "features_dc", "features_rest", "opacity", "scaling",
+               "rotation", "confidence")
+
+
+def to_numpy_dict(state: MapState, which: int) -> Dict[str, np.ndarray]:
+    """The rows with status ``which``, in slot order, as numpy arrays
+    (``to_numpy_dict`` :190)."""
+    sel = torch.nonzero(state.status == which).flatten()
+    return {k: getattr(state, k)[sel].cpu().numpy() for k in _PLY_FIELDS}
+
+
+def load_numpy_dict(state: MapState, data: Dict[str, np.ndarray],
+                    status_value: int = STABLE, start: int = 0) -> MapState:
+    """Write checkpoint rows into slots ``start..start+n`` with status
+    ``status_value``, in place (``load_numpy_dict`` :205); a checkpoint of
+    a lower SH degree is zero-padded."""
+    n = data["xyz"].shape[0]
+    rest = data["features_rest"]
+    if rest.shape[1] < state.features_rest.shape[1]:
+        pad = state.features_rest.shape[1] - rest.shape[1]
+        rest = np.pad(rest, ((0, 0), (0, pad), (0, 0)))
+    for k in _PLY_FIELDS:
+        src = rest if k == "features_rest" else data[k]
+        dst = getattr(state, k)
+        dst[start:start + n] = torch.as_tensor(np.asarray(src), dtype=dst.dtype,
+                                               device=dst.device)
+    state.status[start:start + n] = status_value
+    return state

@@ -12,6 +12,8 @@ Port of ``rtgslam_tpu/slam/mapper.py``.  Per mapped frame (reference
   global_optimization  keyframe-window refinement of the stable pool; at the
                        end of the run, the final pass over every keyframe
   lifecycle            fix confident -> error strikes -> delete, with its render
+  save_model /         PLY checkpoints in the JAX package's layout and bytes
+  load_model
 
 Optimization frames (every ``gaussian_update_frame``-th) run these as
 separate steps; the others run ``map_ops.frame_chain``.  The gradient passes
@@ -20,6 +22,7 @@ run through ``models/optimize.py`` (the blend kernels K1 and K2).
 
 from __future__ import annotations
 
+import os
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -30,8 +33,10 @@ from .. import setup_device
 from ..data.camera import Camera
 from ..models import map_ops, optimize
 from ..models.gaussian_map import (STABLE, UNSTABLE, GaussianMapConfig,
-                                   MapState, alive_mask, render_inputs)
+                                   MapState, alive_mask, load_numpy_dict,
+                                   render_inputs, to_numpy_dict)
 from ..ops.rasterize import RasterSettings, render
+from ..utils import ply as ply_utils
 from ..utils.geometry import rot_compare, trans_compare
 
 PrioritySource = Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]
@@ -69,6 +74,9 @@ class Mapper:
         self.n_spawns = 0
 
         self.time = 0
+        self.iter = 0      # the checkpoint names' iteration stamp, as in JAX
+        self.save_path = args.save_path
+        self.save_step = int(args.save_step)
         self.gaussian_update_iter = int(args.gaussian_update_iter)
         self.final_global_iter = int(args.final_global_iter)
         self.optimize_compact = bool(getattr(args, "optimize_compact", False))
@@ -124,10 +132,12 @@ class Mapper:
     def _note_overflow(self, out) -> None:
         self.max_overflow = max(self.max_overflow, int(out["overflow"]))
 
-    def _render(self, camera: Dict[str, torch.Tensor]):
-        """Render every alive gaussian (the JAX ``_render(.., "global")``)."""
+    def _render(self, camera: Dict[str, torch.Tensor],
+                settings: Optional[RasterSettings] = None):
+        """Render every alive gaussian (the JAX ``_render(.., "global")``),
+        with the mapper's settings unless ``settings`` overrides them."""
         out = render(render_inputs(self.state, alive_mask(self.state)),
-                     camera, self.settings)
+                     camera, settings or self.settings)
         self._note_overflow(out)
         return out
 
@@ -430,3 +440,59 @@ class Mapper:
             map_ops.delete_gaussians(self.state, self.time,
                                      self.unstable_time_window, unstable=False)
         self.lifecycle()
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    def snapshot_host(self):
+        """Host copy of both pools' PLY rows and the (time, iter) stamp
+        (``snapshot_host`` :838)."""
+        return {"unstable": to_numpy_dict(self.state, UNSTABLE),
+                "stable": to_numpy_dict(self.state, STABLE),
+                "time": self.time, "iter": self.iter}
+
+    def save_snapshot(self, snap, path=None, save_data=True, save_sibr=True,
+                      save_merge=True):
+        """Write one host snapshot as PLYs in the reference layout
+        (``save_model/frame_*/iter_*[.ply|_stable.ply|_sibr.ply|_merge.ply]``,
+        ``save_snapshot`` :851, reference mapper.py:933-966)."""
+        if path is None:
+            model_dir = os.path.join(self.save_path, "save_model",
+                                     f"frame_{snap['time']:04d}")
+            os.makedirs(model_dir, exist_ok=True)
+            path = os.path.join(model_dir, f"iter_{snap['iter']:04d}")
+
+        def dump(pool, suffix, confidence):
+            data = snap[pool]
+            if data["xyz"].shape[0] == 0:
+                return False
+            ply_utils.save_gaussian_ply(
+                path + suffix, data["xyz"], data["features_dc"],
+                data["features_rest"], data["opacity"], data["scaling"],
+                data["rotation"],
+                data["confidence"] if confidence else None)
+            return True
+
+        has_u = has_s = False
+        if save_data:
+            has_u = dump("unstable", ".ply", True)
+            has_s = dump("stable", "_stable.ply", True)
+        if save_sibr:
+            dump("unstable", "_sibr.ply", False)
+            dump("stable", "_stable_sibr.ply", False)
+        if has_u and has_s and save_merge:
+            ply_utils.merge_gaussian_ply(
+                path + ".ply", path + "_stable.ply", path + "_merge.ply")
+
+    def save_model(self, path=None, save_data=True, save_sibr=True, save_merge=True):
+        """PLY snapshots in the reference layout (``save_model`` :884)."""
+        self.save_snapshot(self.snapshot_host(), path=path,
+                           save_data=save_data, save_sibr=save_sibr,
+                           save_merge=save_merge)
+
+    def load_model(self, ply_path: str):
+        """Load a checkpoint into the stable pool of an empty map
+        (``load_model`` :890, the metric.py:154 contract)."""
+        data = ply_utils.read_gaussian_ply(ply_path)
+        self.state = load_numpy_dict(MapState.create(self.config, self.device),
+                                     data, STABLE)

@@ -21,6 +21,7 @@ import torch
 
 from ..config import OptimizationParams, read_config
 from ..data.camera import Camera
+from ..utils.general import sync
 from .eval import eval_frame
 from .mapper import Mapper, PrioritySource
 from .tracker import Tracker
@@ -51,11 +52,6 @@ def make_args(H: int, W: int):
     return args
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run_sequence(args, cams: List[Camera], device="cpu",
                  priority_source: Optional[PrioritySource] = None) -> Dict:
     """Track and map ``cams`` in order, then finish the run.
@@ -72,11 +68,11 @@ def run_sequence(args, cams: List[Camera], device="cpu",
     mapper = Mapper(args, device, priority_source)
     track_ms, map_ms, counts = [], [], []
     for i, cam in enumerate(cams):
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         fm = tracker.map_preprocess(cam, i)
         tracker.tracking(cam, fm)
-        _sync(device)
+        sync(device)
         t1 = time.perf_counter()
         mapper.update_poses(tracker.get_new_poses())
         mapper.mapping(cam, fm, i, opt)
@@ -85,17 +81,17 @@ def run_sequence(args, cams: List[Camera], device="cpu",
             cam, mapper.model_map["render_depth"], mapper.frame_map["depth_map"],
             mapper.model_map["render_normal"], mapper.frame_map["normal_map_w"])
         counts.append((mapper.get_unstable_num, mapper.get_stable_num))
-        _sync(device)
+        sync(device)
         t2 = time.perf_counter()
         mapper.time += 1
         track_ms.append((t1 - t0) * 1e3)
         map_ms.append((t2 - t1) * 1e3)
 
     mapper.update_poses(tracker.get_new_poses())
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     mapper.global_optimization(opt)
-    _sync(device)
+    sync(device)
     final_ms = (time.perf_counter() - t0) * 1e3
     eval_cam = cams[mapper.keyframe_list[-1]["frame"].uid]
     metrics = eval_frame(mapper, eval_cam)

@@ -9,6 +9,7 @@ closure are not ported yet: the constructor refuses them.
 
 from __future__ import annotations
 
+import os
 from collections import defaultdict
 from typing import Dict
 
@@ -139,6 +140,7 @@ class Tracker:
         self.status = defaultdict(bool)
         self.pose_gt = []
         self.pose_es = []
+        self.timestamps = []
         self.K = None
         self._prev_depth = None       # previous frame's filtered depth
         self._model_feedback = None   # (render_d, frame_d, render_n, frame_n)
@@ -162,6 +164,7 @@ class Tracker:
         """Track one frame and fill ``frame_map`` with its world-space maps
         (``_tracking_fused`` :354)."""
         self.pose_gt.append(np.asarray(frame.pose_gt))
+        self.timestamps.append(frame.timestamp)
         depth = self._tensor(frame.depth)
         color = self._tensor(frame.image)
         icp = self.icp
@@ -232,3 +235,14 @@ class Tracker:
         n = len(self.pose_es) if frame_id == -1 else frame_id
         return traj_utils.ate_rmse(np.stack(self.pose_gt[:n])[:, :3, 3],
                                    np.stack(self.pose_es[:n])[:, :3, 3])
+
+    def save_traj(self, save_path: str) -> float:
+        """Write ``save_traj/``: pose_es.npy, pose_gt.npy, traj_tum.txt and
+        (with matplotlib) the ATE plots; returns the ATE in cm
+        (``save_traj`` :509)."""
+        save_dir = os.path.join(save_path, "save_traj")
+        traj_utils.save_traj_npy(save_dir, self.pose_es, self.pose_gt)
+        ate = traj_utils.save_ate_plots(save_dir, self.pose_es, self.pose_gt)
+        traj_utils.save_traj_tum(
+            os.path.join(save_dir, "traj_tum.txt"), self.pose_es, self.timestamps)
+        return ate

@@ -122,24 +122,54 @@ def test_opt_slice_gaussian_counts_and_overflow(opt_runs):
     assert out["max_overflow"] == ref["max_overflow"] == 0
 
 
-def test_port_runs_without_jax():
-    """The port's slice on CPU in a fresh interpreter never loads JAX or
-    the JAX package."""
+def test_port_runs_without_jax(tmp_path):
+    """In a fresh interpreter where importing JAX or the JAX package fails,
+    the port's modules and both entry points import, the slice runs on the
+    CPU, and ``slam_torch.py`` / ``metric_torch.py`` run a 3-frame scene
+    written to disk."""
     code = textwrap.dedent("""
-        import sys
+        import importlib, sys
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "rtgslam_tpu", "flax"):
+                    raise ImportError("blocked: " + name)
+        sys.meta_path.insert(0, Block())
         import torch
         torch.set_num_threads(1)
-        from rtgslam_torch.data.synthetic import make_cameras
+        for m in ("slam_torch", "metric_torch", "rtgslam_torch.config",
+                  "rtgslam_torch.data.camera", "rtgslam_torch.data.dataset",
+                  "rtgslam_torch.data.loader", "rtgslam_torch.data.synthetic",
+                  "rtgslam_torch.models.densify", "rtgslam_torch.models.gaussian_map",
+                  "rtgslam_torch.slam.eval", "rtgslam_torch.slam.mapper",
+                  "rtgslam_torch.slam.tracker", "rtgslam_torch.utils.general",
+                  "rtgslam_torch.utils.image_io", "rtgslam_torch.utils.monitor",
+                  "rtgslam_torch.utils.ply", "rtgslam_torch.utils.traj"):
+            importlib.import_module(m)
+        from rtgslam_torch.data.synthetic import make_cameras, write_scene
         from rtgslam_torch.slam.run import make_args, run_sequence
         args = make_args(48, 64)
         res = run_sequence(args, make_cameras(2, 48, 64), "cpu")
         assert res["n_stable"] > 0 and res["max_overflow"] == 0, res
+        tmp = sys.argv[1]
+        scene = write_scene(tmp + "/scene", 3, 48, 64)
+        with open(tmp + "/c.yaml", "w") as f:
+            f.write("parent: configs/synthetic/room.yaml\\n"
+                    f"source_path: {scene}\\nsave_path: {tmp}/out\\n"
+                    "map_capacity: 8192\\ntemp_capacity: 2048\\n"
+                    "uniform_sample_num: 800\\ngaussian_update_iter: 3\\n"
+                    "gaussian_update_frame: 2\\nfinal_global_iter: 2\\n"
+                    "save_step: 2\\n")
+        import metric_torch, slam_torch
+        out = slam_torch.main(["--config", tmp + "/c.yaml", "--device", "cpu"])
+        assert out["final_eval"]["psnr"] > 15, out["final_eval"]
+        met = metric_torch.main(["--config", tmp + "/c.yaml", "--device", "cpu"])
+        assert len(met["rows"]) == 3 and met["mean"]["psnr"] > 15, met["mean"]
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "rtgslam_tpu", "flax")]
         assert not bad, bad
         print("ok")
     """)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")

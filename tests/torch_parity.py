@@ -10,21 +10,55 @@ frame, 10 final-pass iterations per keyframe):
 
     JAX_PLATFORMS=cpu python tests/torch_parity.py --frames 12 --height 170 --width 300
     JAX_PLATFORMS=cpu python tests/torch_parity.py --optimize --frames 12 --height 170 --width 300
+
+With ``--entry`` it writes the references of the entry points instead: the
+JAX ``write_scene`` output on disk, a child config of
+``configs/synthetic/room.yaml`` (``ENTRY_OVERRIDES``), then ``slam.py
+--platform cpu`` and ``metric.py --platform cpu`` as subprocesses from the
+repository root, summarized by :func:`summarize_run`:
+
+    JAX_PLATFORMS=cpu python tests/torch_parity.py --entry --frames 6 --height 96 --width 128
+    JAX_PLATFORMS=cpu python tests/torch_parity.py --entry --frames 12 --height 170 --width 300
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
+import re
+import subprocess
 import sys
+import tempfile
 
 import numpy as np
+import yaml
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_JSON = os.path.join(REPO, "tests", "data", "slice_170x300_jax_cpu.json")
 REF_OPT_JSON = os.path.join(REPO, "tests", "data",
                             "slice_opt_170x300_jax_cpu.json")
+ROOM_YAML = os.path.join(REPO, "configs", "synthetic", "room.yaml")
+
+# The entry-point runs' child configs of configs/synthetic/room.yaml, by
+# frame size.  Keyframe thresholds low enough that every optimization frame
+# is a keyframe, and a stable-confidence threshold that a gaussian passes
+# after two optimization calls (confidence grows by one per iteration that
+# touches it), so later keyframes run the windowed global optimization.
+# 96x128 takes the sizes of tests/conftest.py::base_args.
+_KEYFRAMES = {"keyframe_trans_thes": 0.003, "keyframe_theta_thes": 0.25}
+ENTRY_OVERRIDES = {
+    (96, 128): dict(_KEYFRAMES, map_capacity=8192, temp_capacity=2048,
+                    block_capacity=4096, tile_capacity=1024,
+                    uniform_sample_num=1500, memory_length=3,
+                    gaussian_update_iter=10, gaussian_update_frame=2,
+                    max_depth=8.0, stable_confidence_thres=15,
+                    final_global_iter=2, save_step=3),
+    (170, 300): dict(_KEYFRAMES, stable_confidence_thres=60, save_step=6),
+}
+# left out of the file-set comparisons: matplotlib's plots
+PLOTS = ("ate.png", "traj_xy.jpg")
 
 
 def to_torch(x):
@@ -124,6 +158,59 @@ def jax_mapper(args):
     return NoPrewarmMapper(args)
 
 
+def random_gaussians(n, n_rest=15, seed=0):
+    """Raw parameters of ``n`` flat gaussians in front of a camera at the
+    origin looking down +z (the map fields a checkpoint holds)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    scaling = np.log(rng.uniform(0.03, 0.12, (n, 3))).astype(f32)
+    scaling[:, 2] -= 2.5                                  # flat discs
+    return {
+        "xyz": rng.uniform([-1.2, -0.9, 1.5], [1.2, 0.9, 3.5], (n, 3)).astype(f32),
+        "features_dc": rng.normal(0.3, 0.4, (n, 3)).astype(f32),
+        "features_rest": rng.normal(0, 0.05, (n, n_rest, 3)).astype(f32),
+        "opacity": rng.normal(1.5, 1.0, (n, 1)).astype(f32),
+        "scaling": scaling,
+        "rotation": (rng.normal(0, 1, (n, 4)) + [2, 0, 0, 0]).astype(f32),
+        "confidence": rng.integers(0, 200, (n, 1)).astype(f32),
+    }
+
+
+def mappers_with_same_map(base_args, H, W, n=300, capacity=1024):
+    """(args, camera, JAX Mapper, port Mapper on the CPU) holding the same
+    map: ``n`` random gaussians, unstable and stable interleaved over
+    scattered slots, seen by the first synthetic camera at H x W."""
+    import copy
+
+    import jax.numpy as jnp
+    from rtgslam_tpu.data.synthetic import make_cameras
+    from rtgslam_tpu.models.gaussian_map import STABLE, UNSTABLE
+    from rtgslam_tpu.slam import Mapper as JaxMapper
+    from rtgslam_torch.models.gaussian_map import MapState
+    from rtgslam_torch.slam.mapper import Mapper
+
+    args = copy.copy(base_args)
+    args.map_capacity = capacity
+    cam = make_cameras(1, H, W)[0]
+    g = random_gaussians(n, n_rest=(args.max_sh_degree + 1) ** 2 - 1, seed=4)
+    slots = np.sort(np.random.default_rng(5).choice(capacity, n, replace=False))
+    jm = JaxMapper(args)
+    fields = {}
+    for k, v in g.items():
+        full = np.array(getattr(jm.state, k))
+        full[slots] = v
+        fields[k] = jnp.asarray(full)
+    status = np.array(jm.state.status)
+    status[slots] = np.where(np.arange(n) % 2, STABLE, UNSTABLE)
+    jm.state = jm.state.replace(status=jnp.asarray(status), **fields)
+    jm._ensure_settings(cam)
+    pm = Mapper(args, "cpu")
+    pm.state = MapState.from_numpy(
+        {f: np.asarray(getattr(jm.state, f)) for f in MapState.__dataclass_fields__})
+    pm._ensure_settings(cam)
+    return args, cam, jm, pm
+
+
 def run_jax_sequence(args, cams):
     """The JAX package's slice loop: slam.py:125-157 per frame (non-band
     branch), then update poses, the final global pass and the last
@@ -164,6 +251,135 @@ def run_jax_sequence(args, cams):
     }
 
 
+def write_child_config(path: str, parent: str, source_path: str,
+                       save_path: str, overrides: dict) -> str:
+    """A YAML config whose parent is ``parent`` (an absolute path)."""
+    cfg = dict(overrides, parent=parent, source_path=source_path,
+               save_path=save_path)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=True)
+    return path
+
+
+def _ply_rows(path: str) -> int:
+    with open(path, "rb") as f:
+        head = f.read(4096)
+    return int(re.search(rb"element vertex (\d+)", head).group(1))
+
+
+def frame_totals(checkpoint_rows: dict) -> dict:
+    """Gaussians in the map at each checkpoint: the rows of its unstable
+    and stable pool files (``frame_XXXX/iter_XXXX{.ply,_stable.ply}``)."""
+    totals = {}
+    for name, rows in checkpoint_rows.items():
+        if re.search(r"/iter_\d+(_stable)?\.ply$", name):
+            frame = name.split("/")[0]
+            totals[frame] = totals.get(frame, 0) + rows
+    return totals
+
+
+def rows_within(got: dict, ref: dict, rel: float) -> list:
+    """The checkpoints whose row count differs from the reference's by more
+    than ``rel`` of the gaussians the reference map holds at that
+    checkpoint.  A pool's split between unstable and stable moves with the
+    confidence count (the iterations that touched a gaussian) crossing the
+    stable threshold, so a small pool is held against the map it is part
+    of."""
+    totals = frame_totals(ref)
+    return [(name, got.get(name), rows) for name, rows in ref.items()
+            if got.get(name) is None
+            or abs(got[name] - rows) > rel * totals[name.split("/")[0]]]
+
+
+def summarize_run(save_path: str) -> dict:
+    """What an entry-point run left in ``save_path``: the file sets of
+    save_model/ and save_traj/ (without the plots), each checkpoint's row
+    count, the poses and ATE, the final keyframe's eval (the newest JSON in
+    eval_render/) and the metric CSV's columns, row count and mean row."""
+    from rtgslam_torch.utils.traj import ate_rmse
+
+    def files(sub):
+        root = os.path.join(save_path, sub)
+        return sorted(os.path.relpath(p, root)
+                      for p in glob.glob(os.path.join(root, "**", "*"), recursive=True)
+                      if os.path.isfile(p) and os.path.basename(p) not in PLOTS)
+
+    model_files = files("save_model")
+    traj = os.path.join(save_path, "save_traj")
+    pose_es = np.load(os.path.join(traj, "pose_es.npy"))
+    pose_gt = np.load(os.path.join(traj, "pose_gt.npy"))
+    evals = glob.glob(os.path.join(save_path, "eval_render", "frame_*.json"))
+    final = max(evals, key=lambda p: os.stat(p).st_mtime_ns)
+    with open(final) as f:
+        final_eval = json.load(f)
+    (csv_path,) = glob.glob(os.path.join(save_path, "statis_frame_*.csv"))
+    with open(csv_path) as f:
+        lines = [l.rstrip("\n").split(",") for l in f if l.strip()]
+    columns, body = lines[0], lines[1:]
+    mean = dict(zip(columns, body[-1]))
+    return {
+        "save_model_files": model_files,
+        "save_traj_files": files("save_traj"),
+        "checkpoint_rows": {p: _ply_rows(os.path.join(save_path, "save_model", p))
+                            for p in model_files if p.endswith(".ply")},
+        "poses": pose_es.tolist(),
+        "ate_cm": ate_rmse(pose_es, pose_gt),
+        "final_eval_file": os.path.basename(final),
+        "psnr": final_eval["psnr"],
+        "depth_l1_cm": final_eval["depth_l1_cm"],
+        "final_bin_overflow": final_eval["bin_overflow"],
+        "csv_file": os.path.basename(csv_path),
+        "csv_columns": columns,
+        "csv_rows": len(body) - 1,
+        "csv_mean": {k: float(v) for k, v in mean.items() if k != "frame"},
+    }
+
+
+def entry_main(a):
+    """Write the entry-point reference of the JAX package (see the module
+    docstring)."""
+    from rtgslam_tpu.data.synthetic import write_scene
+
+    overrides = ENTRY_OVERRIDES[(a.height, a.width)]
+    out_path = a.out or os.path.join(
+        REPO, "tests", "data", f"entry_{a.height}x{a.width}_jax_cpu.json")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = write_scene(os.path.join(tmp, "scene"), a.frames, a.height, a.width)
+        save = os.path.join(tmp, "out")
+        cfg = write_child_config(os.path.join(tmp, "entry.yaml"), ROOM_YAML,
+                                 scene, save, overrides)
+        logs = {}
+        for script in ("slam.py", "metric.py"):
+            proc = subprocess.run(
+                [sys.executable, script, "--platform", "cpu", "--config", cfg],
+                cwd=REPO, env=env, capture_output=True, text=True)
+            logs[script] = proc.stdout
+            if proc.returncode:
+                sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+                raise SystemExit(f"{script} failed ({proc.returncode})")
+        ref = summarize_run(save)
+    counts = re.search(r"stable num: (\d+), unstable num: (\d+)", logs["slam.py"])
+    overflow = re.search(r"max bin_overflow: (\d+)", logs["slam.py"])
+    import jax
+
+    ref.update({
+        "command": ("JAX_PLATFORMS=cpu python tests/torch_parity.py --entry "
+                    f"--frames {a.frames} --height {a.height} --width {a.width}"),
+        "config": "configs/synthetic/room.yaml with overrides",
+        "overrides": overrides,
+        "frames": a.frames, "height": a.height, "width": a.width,
+        "jax_version": jax.__version__,
+        "loop_end_counts": [int(counts.group(1)), int(counts.group(2))],
+        "max_overflow": int(overflow.group(1)),
+    })
+    with open(out_path, "w") as f:
+        json.dump(ref, f, indent=1)
+    print(json.dumps({k: ref[k] for k in ("ate_cm", "psnr", "depth_l1_cm",
+                                          "loop_end_counts", "max_overflow",
+                                          "csv_mean")}))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=12)
@@ -171,14 +387,18 @@ def main():
     ap.add_argument("--width", type=int, default=300)
     ap.add_argument("--optimize", action="store_true",
                     help="keep bench.make_args' iteration counts")
+    ap.add_argument("--entry", action="store_true",
+                    help="reference of slam.py + metric.py on a scene on disk")
     ap.add_argument("--out", default=None)
     a = ap.parse_args()
-    out_path = a.out or (REF_OPT_JSON if a.optimize else REF_JSON)
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, REPO)
+    if a.entry:
+        return entry_main(a)
+    out_path = a.out or (REF_OPT_JSON if a.optimize else REF_JSON)
     import bench
     from rtgslam_tpu.data.synthetic import make_cameras
 
