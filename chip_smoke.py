@@ -5,12 +5,18 @@
 
 Phases (any failure exits non-zero, and nothing falls back to the CPU):
   1.  require a CUDA device; print the card's name and power limit;
-  2.  build kernels K1 (csrc/blend_fwd.cu) and K2 (csrc/blend_bwd.cu) from
-      the sources, one nvcc each, started together, and print the seconds;
-  3a. hold K1's inference mode against its plain PyTorch twin on random tiles;
-  3c. K1's residual mode (maps, entry T, done) and transmission mode (T, the
-      mask T != 1 exact) against their twins on random tiles;
-  3d. K2 against the plain backward on random tiles;
+  2.  build kernels K1 (csrc/blend_fwd.cu) and K2 with its reduce
+      (csrc/blend_bwd.cu; both include csrc/blend_common.cuh) from the
+      sources, one nvcc each, started together, and print the seconds and
+      ptxas's registers and shared memory;
+  3a. hold K1's inference mode against its plain PyTorch twin on random
+      tiles, some of whose counts sit at the walks' trim edges (0, 1,
+      chunk - 1, chunk, chunk + 1, Kt);
+  3c. K1's residual mode (maps, entry T, done, chunk colours) and
+      transmission mode (T, the mask T != 1 exact) against their twins on
+      the same tiles;
+  3d. K2 with the reduce against the plain backward on the same tiles,
+      twice, bitwise equal;
   4.  the forward-only loop (both iteration counts 0) at 170x300 x 12
       frames against the JAX-on-CPU reference tests/data/slice_170x300_jax_cpu.json;
   4b. the loop with gradient optimization (bench.make_args unchanged) at
@@ -18,14 +24,16 @@ Phases (any failure exits non-zero, and nothing falls back to the CPU):
   5.  the bench point with optimization at 680x1200 x 12 frames (map
       capacity 2^19) with the launch counts reset just before: overflow 0,
       finite metrics, ATE <= 1 cm, PSNR >= 27.5, K1 launched at least once
-      per render and per iteration, K2 once per iteration; the run keeps
-      the inputs of the first K1 residual and K2 launches of its last local
-      optimize call and of its final pass, and times every optimize call;
+      per render and per iteration, K2 and the reduce once per iteration;
+      the run keeps the inputs of the first K1 residual and K2 launches of
+      its last local optimize call and of its final pass, and times every
+      optimize call;
   3b. K1's inference mode against its twin on that map's last frame;
   3e. K1's transmission mode against its twin on the stable pool's mask
-      render of that map, and K1's residual mode and K2 against theirs on
-      the launches phase 5 kept (the local pass's compact lists, the final
-      pass's full lists), with times at those shapes;
+      render of that map, and K1's residual mode, K2 and the reduce against
+      theirs on the launches phase 5 kept (the local pass's compact lists,
+      the final pass's full lists); K2 with the reduce launched twice on
+      each, bitwise equal;
   6a. the entry points, slam_torch.py then metric_torch.py, on the room
       written to disk at 170x300 x 12 frames (a child of
       configs/synthetic/room.yaml whose keyframe thresholds put the windowed
@@ -40,7 +48,16 @@ Phases (any failure exits non-zero, and nothing falls back to the CPU):
       once per iteration; the final checkpoint, reloaded into a fresh
       mapper, renders the last keyframe within 0.01 dB of the in-run eval;
       metric_torch writes a CSV row per frame and the mean; K1's residual
-      mode and K2 against their twins on the global call's own launches.
+      mode, K2 and the reduce against their twins on the global call's own
+      launches, K2 with the reduce twice, bitwise equal.
+For every launch measured in 3b, 3e and 6b the script prints the live
+(pixel, entry) pairs its inputs need and how many of them have a non-zero
+alpha, the least time the card could take for that work (the bound: FP32
+operations over 67 TFLOP/s or bytes over 3.35 TB/s, whichever is larger;
+the operations charged per pair as the data needs them, the bytes of the
+rows and list entries the walks read and of the outputs), the kernel's
+CUDA-event time and its share of the bound; for K2's launches also the
+time of the reduce's row index.
 The line before the last is the kernel report, the last the device line.
 """
 
@@ -78,9 +95,12 @@ TIE_FRACTION = 1e-3
 # K2 vs the plain backward, column by column: each column within BWD_RTOL
 # of its own largest gradient, plus BWD_FLOOR of the largest gradient of
 # any column (for a column that is all but 0).  Per-pixel terms are summed
-# in another order (warp shuffles, then atomics across tiles whose order
-# changes from run to run) on transmittances that differ by rounding
+# in another order (a warp butterfly, then the warps, then the tiles in
+# list order; PyTorch's own order in the twin) on transmittances that
+# differ by rounding
 BWD_RTOL, BWD_FLOOR = 1e-4, 1e-6
+# the reduce vs its twin: both add each row's positions in the same order
+REDUCE_ATOL = 0.0
 BWD_COLUMNS = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "z",
                "r", "g", "b", "opacity")
 # phase 4 against the JAX reference: the port replays JAX's spawn priority
@@ -95,12 +115,31 @@ REF_TOL = {"ate_cm": 0.05, "psnr": 0.2, "depth_l1_cm": 0.1, "gaussians_rel": 0.0
 OPT_REF_TOL = {"ate_cm": 0.05, "psnr": 0.3, "depth_l1_cm": 0.1,
                "gaussians_rel": 0.02}
 # phase 6a: OPT_REF_TOL, except the final keyframe's PSNR.  That one frame,
-# rendered after the windowed global call and the final pass, moves with
-# the summation order of K2's atomics: six runs of the port on one H100 gave
-# 34.51-35.05 dB against the reference's 35.03; the metric CSV's mean PSNR
-# over all 12 frames stays within OPT_REF_TOL's 0.3 (it came within 0.16)
+# rendered after the windowed global call and the final pass, moved with the
+# summation order while K2 added with atomics: six runs on one H100 gave
+# 34.51-35.05 dB against the reference's 35.03.  K2 now sums in a fixed
+# order and the run repeats bit for bit, so what is left is one fixed gap;
+# the metric CSV's mean PSNR over all 12 frames is held to OPT_REF_TOL's 0.3
 ENTRY_REF_TOL = dict(OPT_REF_TOL, final_psnr=0.8)
 BENCH_ATE_CM, BENCH_PSNR = 1.0, 27.5
+# FP32 operations, counted from the sources (a fused multiply-add counts 2,
+# expf 1) and charged only where the function needs them.  Every live
+# (pixel, entry) pair needs its alpha (blend_common.cuh::entry_alpha): 11
+# for the power, the clamp, expf, the opacity product and 3 for the
+# thresholds
+ALPHA_OPS = 17
+# a pair with a non-zero alpha needs more (one with alpha 0 changes nothing
+# and has no gradient).  K1: the weight, 3 colour FMAs, 3 compares (depth
+# hit, colour index), the transmittance FMA; in transmission mode the FMA
+K1_BLEND_OPS, K1_TRANS_OPS = 12, 2
+# K2: rgb . g_C 5, the weight 1, the prefix and suffix sums 4, d/dalpha 5
+# (its division included), the gate's and the depth hit's compares 3, the
+# alpha factor 1, the ten terms 20, T 2, and 9 adds into the entry's pixel
+# sums (the depth term adds only at a hit)
+K2_TERM_OPS = 50
+# NVIDIA H100 SXM at 700 W, dense FP32 outside the tensor cores and HBM3
+# (NVIDIA's data sheet)
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 
 
 def fail(msg):
@@ -108,10 +147,19 @@ def fail(msg):
 
 
 def cuda_ms(fn, reps):
+    """Device ms per call of ``fn`` over ``reps`` calls back to back (CUDA
+    events).  A sleep kernel queued first holds the device while the host
+    enqueues the calls, so a wrapper's host time (output allocations, the
+    ctypes call) does not stretch a short kernel's time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(2 * reps * host_s, 0.2) * 2e9))   # ~2 GHz cycles
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -122,8 +170,16 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def trim_edges(Kt):
+    """Tile counts at the edges of a walk trimmed at the count."""
+    chunk = min(128, Kt)
+    return sorted({min(c, Kt) for c in (0, 1, chunk - 1, chunk, chunk + 1, Kt)})
+
+
 def random_tiles(device, T=384, Kt=512, V=20000, seed=0):
-    """Random depth-sorted feature rows and ascending per-tile lists."""
+    """Random depth-sorted feature rows and ascending per-tile lists; tiles
+    1, 2, ... hold the counts of :func:`trim_edges`, the others random
+    ones."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -143,6 +199,8 @@ def random_tiles(device, T=384, Kt=512, V=20000, seed=0):
     order = torch.randperm(V, generator=g).to(torch.int32)
     counts = torch.randint(0, Kt + 1, (T,), generator=g).to(torch.int32)
     counts[::17] = 0
+    edges = trim_edges(Kt)
+    counts[1:1 + len(edges)] = torch.tensor(edges, dtype=torch.int32)
     lists = torch.full((T, Kt), V, dtype=torch.int32)
     for t in range(T):
         c = int(counts[t])
@@ -204,10 +262,15 @@ def compare_blend(out, ref, feat, order, origins, opaque_threshold):
     return err, int(cdiff.sum()), int(ddiff.sum())
 
 
-def compare_residuals(entry, done, ref_entry, ref_done, t_threshold):
-    """Max abs error of K1's entry T against the twin's.  ``done`` must be
-    equal except where the tile's max T at the exit test sits within
+def compare_residuals(res, ref_res, t_threshold):
+    """Max abs error of K1's residuals ``(entry T, done, chunk colours)``
+    against the twin's: entry T over every chunk (0 past done), chunk
+    colours over the chunks processed (undefined past done).  ``done`` must
+    be equal except where the tile's max T at the exit test sits within
     BLEND_ATOL of the threshold (then the two round to opposite sides)."""
+    import torch
+
+    (entry, done, chunk_color), (ref_entry, ref_done, ref_cc) = res, ref_res
     diff = done != ref_done
     for t in diff.nonzero().flatten().tolist():
         c = int(min(done[t], ref_done[t]))
@@ -219,7 +282,13 @@ def compare_residuals(entry, done, ref_entry, ref_done, t_threshold):
     err = float((entry[same] - ref_entry[same]).abs().max()) if same.any() else 0.0
     if not err <= BLEND_ATOL:
         fail(f"K1 residual entry T differs by {err:.3g} > {BLEND_ATOL}")
-    return err, int(diff.sum())
+    reached = same[:, None] & (torch.arange(entry.shape[1], device=done.device)
+                               < done[:, None])
+    err_cc = (float((chunk_color[reached] - ref_cc[reached]).abs().max())
+              if reached.any() else 0.0)
+    if not err_cc <= BLEND_ATOL:
+        fail(f"K1 residual chunk colours differ by {err_cc:.3g} > {BLEND_ATOL}")
+    return max(err, err_cc), int(diff.sum())
 
 
 def compare_transmission(T, ref):
@@ -248,6 +317,224 @@ def compare_bwd(g, ref, label):
     report = ", ".join(f"{n} {e:.2g}/{s:.3g}"
                        for n, e, s in zip(BWD_COLUMNS, err, scale))
     return max(err[:10]), report
+
+
+def nbytes(*xs):
+    import torch
+
+    return sum(x.numel() * x.element_size() for x in xs if torch.is_tensor(x))
+
+
+def bound(flops, n_bytes):
+    """(ms, what sets it): the least time the card could take for ``flops``
+    FP32 operations that move ``n_bytes``."""
+    t_ops, t_bytes = flops / PEAK_FP32, n_bytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def live_work(feat, lists, counts, done, origins):
+    """What a launch's data needs, from its rows (11 or 6 columns), lists,
+    counts and ``done``: ``pairs``, the live (pixel, entry) pairs 256 x
+    sum_t min(count_t, chunk x done_t) that a walk trimmed at the count
+    computes; ``nonzero``, those with a non-zero alpha; ``positions``, the
+    list entries they read; ``rows``, the distinct feature rows those
+    entries name (the sentinel left out); ``chunks``, sum_t done_t;
+    ``tiles``, the tiles with a live position."""
+    import torch
+    from rtgslam_torch.ops.rasterize import blend
+
+    T, Kt = lists.shape
+    chunk = min(blend.CHUNK, Kt)
+    V = feat.shape[0] - 1
+    n = torch.minimum(counts.long().clamp(0, Kt), chunk * done.long())
+    live = torch.arange(Kt, device=lists.device)[None] < n[:, None]
+    entries = lists[live]
+    pix = blend.tile_pixels(origins)
+    nonzero = 0
+    for c in range(int(done.max()) if T else 0):
+        cols = slice(c * chunk, (c + 1) * chunk)
+        for a in torch.nonzero(done > c).squeeze(1).split(256):
+            alpha = blend._chunk_alphas(feat[lists[a, cols].long()], pix[a])[0]
+            nonzero += int(((alpha != 0) & live[a, None, cols]).sum())
+    return {"pairs": blend.NPIX * int(n.sum()), "nonzero": nonzero,
+            "positions": int(n.sum()),
+            "rows": int(torch.unique(entries[(entries >= 0) & (entries < V)]).numel()),
+            "chunks": int(done.long().sum()), "tiles": int((n > 0).sum())}
+
+
+def work_bound(kind, w, T, n_chunks):
+    """(ms, what sets it) of a launch of ``kind`` ("inference", "residual",
+    "transmission" or "bwd") on ``T`` tiles of ``n_chunks`` chunks, from
+    :func:`live_work`'s counts ``w``.  Bytes: each named row (with its
+    index-map value) and live list entry read once, the per-tile and
+    per-pixel inputs, every output written once."""
+    npix, rows, pos = 256, w["rows"], w["positions"]
+    if kind == "transmission":   # 6-column rows in, T out
+        return bound(w["pairs"] * ALPHA_OPS + w["nonzero"] * K1_TRANS_OPS,
+                     24 * rows + 4 * pos + 12 * T + 4 * npix * T)
+    read = 48 * rows + 4 * pos + 12 * T      # rows, lists, counts, origins
+    if kind == "bwd":
+        # done; the processed chunks' entry T and chunk colours; the live
+        # tiles' cotangents, T_final x g_T and depth hits; 10 partials out
+        # per position
+        return bound(w["pairs"] * ALPHA_OPS + w["nonzero"] * K2_TERM_OPS,
+                     read + 4 * T + 16 * npix * w["chunks"]
+                     + 24 * npix * w["tiles"] + 40 * pos)
+    out = 36 * npix * T   # colour, depth, T, index maps and weights
+    if kind == "residual":   # entry T of every chunk, done, chunk colours
+        out += 4 * npix * T * n_chunks + 4 * T + 12 * npix * w["chunks"]
+    return bound(w["pairs"] * ALPHA_OPS + w["nonzero"] * K1_BLEND_OPS,
+                 read + out)
+
+
+def work_line(name, w):
+    return (f"{name} {w['ms']:.4f} ms (plain {w['plain_ms']:.4f}), live pairs "
+            f"{w['pairs']}, bound {w['bound_ms']:.4f} ms by {w['bound_by']}, "
+            f"share {w['bound_ms'] / w['ms']:.3f}")
+
+
+def check_inference(label, bargs, smi):
+    """K1's inference mode on ``bargs`` against its twin, timed, with its
+    live pairs (``done`` from one residual-mode launch on the same inputs)
+    and bound."""
+    import torch
+    from rtgslam_torch.ops.rasterize import blend
+
+    out = blend.blend_tiles(*bargs)
+    ref = blend.blend_tiles_reference(*bargs)
+    done = blend.blend_tiles(*bargs, residuals=True)[2]
+    torch.cuda.synchronize()
+    err, ct, dt = compare_blend(out, ref, bargs[0], bargs[1], bargs[4], bargs[5])
+    lw = live_work(bargs[0], bargs[2], bargs[3], done, bargs[4])
+    T, Kt = bargs[2].shape
+    b_ms, by = work_bound("inference", lw, T, Kt // min(blend.CHUNK, Kt))
+    w = {"err": err, "pairs": lw["pairs"], "bound_ms": b_ms, "bound_by": by,
+         "ms": cuda_ms(lambda: blend.blend_tiles(*bargs), 50),
+         "plain_ms": cuda_ms(lambda: blend.blend_tiles_reference(*bargs), 5)}
+    print(f"[{label}] lists {tuple(bargs[2].shape)}: max abs err {err:.3g}, "
+          f"index near-ties color {ct} depth {dt}; {work_line('K1', w)} ({smi})")
+    return w
+
+
+def check_transmission(label, targs, smi):
+    """K1's transmission mode on ``targs`` against its twin, timed, with
+    its live pairs (``done`` from a residual-mode launch on the same rows
+    widened to 11 columns: the same alphas, the same exit) and bound."""
+    import torch
+    from rtgslam_torch.ops.rasterize import blend
+
+    cols6, lists, counts, origins, t_thr = targs
+    err = compare_transmission(blend.blend_transmission(*targs),
+                               blend.blend_transmission_reference(*targs))
+    feat = cols6.new_zeros((cols6.shape[0], blend.NFEAT))
+    feat[:, [0, 1, 2, 3, 4, 9]] = cols6
+    order = torch.arange(cols6.shape[0] - 1, dtype=torch.int32,
+                         device=cols6.device)
+    done = blend.blend_tiles(feat, order, lists, counts, origins, 1.0, t_thr,
+                             residuals=True)[2]
+    lw = live_work(cols6, lists, counts, done, origins)
+    b_ms, by = work_bound("transmission", lw, lists.shape[0], None)
+    w = {"err": err, "pairs": lw["pairs"], "bound_ms": b_ms, "bound_by": by,
+         "ms": cuda_ms(lambda: blend.blend_transmission(*targs), 50),
+         "plain_ms": cuda_ms(lambda: blend.blend_transmission_reference(*targs), 5)}
+    print(f"[{label}] transmission mode, lists {tuple(lists.shape)}: max abs "
+          f"err {err:.3g}, mask T != 1 equal; {work_line('K1', w)} ({smi})")
+    return w
+
+
+def check_launch(label, fargs, bargs, smi):
+    """K1's residual mode on ``fargs`` and K2 with the reduce on ``bargs``
+    (a K1 residual and a K2 launch the main path made, with the run's own
+    residuals and cotangents) against their twins; K2 with the reduce twice,
+    bitwise equal; each timed, with its live work and bound.  Returns
+    {"res", "bwd", "reduce"} -> err, ms, plain_ms, pairs, bound_ms,
+    bound_by, library_ms."""
+    import torch
+    from rtgslam_torch.ops.rasterize import blend
+
+    out, *res = blend.blend_tiles(*fargs, residuals=True)
+    ref, *ref_res = blend.blend_tiles_reference(*fargs, residuals=True)
+    torch.cuda.synchronize()
+    e1, _, _ = compare_blend(out, ref, fargs[0], fargs[1], fargs[4], fargs[5])
+    e2, n_edge = compare_residuals(res, ref_res, fargs[6])
+
+    kargs = bargs[:13]
+    feat, lists, counts, origins, done = (kargs[i] for i in (0, 2, 3, 4, 6))
+    T, Kt = lists.shape
+    V = feat.shape[0] - 1
+    index = bargs[13] if len(bargs) > 13 and bargs[13] is not None else \
+        blend.row_index(lists, counts, V)
+    g = blend.blend_bwd(*kargs, index)
+    if not torch.equal(g, blend.blend_bwd(*kargs, index)):
+        fail(f"{label}: two launches of K2 and the reduce on the same inputs differ")
+    e3, cols = compare_bwd(g, blend.blend_bwd_reference(*kargs, index), label)
+    partials = blend.blend_bwd_partials(*kargs)
+    red = blend.blend_bwd_reduce(partials, index, done)
+    red_ref = blend.blend_bwd_reduce_reference(partials, index, done)
+    torch.cuda.synchronize()
+    e4 = float((red - red_ref).abs().max())
+    if not e4 <= REDUCE_ATOL:
+        fail(f"{label}: the reduce differs from its twin by {e4:.3g}")
+    if not torch.equal(red, g):
+        fail(f"{label}: K2's partials differ between launches")
+
+    # the library call that computes the reduce's function: index_add_ of
+    # the live positions' partials (positions in CSR order, as the reduce)
+    nnz = int(index.row_ptr[V])
+    q = index.pos[:nnz].long()
+    chunk = min(blend.CHUNK, Kt)
+    q = q[(q % Kt) // chunk < done.long()[q // Kt]]
+    src, dst = partials.reshape(-1, blend.NGRAD)[q], lists.reshape(-1)[q].long()
+    acc = torch.zeros((V + 1, blend.NGRAD), device=feat.device)
+
+    lw_f = live_work(fargs[0], fargs[2], fargs[3], res[1], fargs[4])
+    lw = live_work(feat, lists, counts, done, origins)
+    live_pos = lw["positions"]
+    n_chunks = Kt // chunk
+    works = {}
+    for name, (b_ms, by), fn, plain, library in (
+            ("res", work_bound("residual", lw_f, T, n_chunks),
+             lambda: blend.blend_tiles(*fargs, residuals=True),
+             lambda: blend.blend_tiles_reference(*fargs, residuals=True), None),
+            ("bwd", work_bound("bwd", lw, T, n_chunks),
+             lambda: blend.blend_bwd_partials(*kargs),
+             lambda: blend.blend_bwd_partials_reference(*kargs), None),
+            # the live partials and their positions in the index in, every
+            # row out
+            ("reduce", bound(blend.NGRAD * live_pos,
+                             4 * blend.NGRAD * live_pos
+                             + nbytes(index.row_ptr, done) + 4 * nnz
+                             + 4 * blend.NFEAT * (V + 1)),
+             lambda: blend.blend_bwd_reduce(partials, index, done),
+             lambda: blend.blend_bwd_reduce_reference(partials, index, done),
+             lambda: acc.index_add_(0, dst, src))):
+        works[name] = {"pairs": lw["pairs"] if name != "res" else lw_f["pairs"],
+                       "bound_ms": b_ms, "bound_by": by,
+                       "ms": cuda_ms(fn, 50), "plain_ms": cuda_ms(plain, 5),
+                       "library_ms": cuda_ms(library, 50) if library else None}
+    works["reduce"]["pairs"] = None   # it walks list positions, not pairs
+    works["res"]["err"], works["bwd"]["err"] = max(e1, e2), e3
+    works["reduce"]["err"] = e4
+    # the row index: once per compact optimize call, once per backward of
+    # the final pass's full renders, whose lists change every iteration
+    works["reduce"]["index_ms"] = cuda_ms(
+        lambda: blend.row_index(lists, counts, V), 50)
+
+    r = works["reduce"]
+    print(f"[{label}] {V} rows ({lw['rows']} named by live entries), lists "
+          f"{tuple(lists.shape)}, tiles walking 1/2/3/4+ chunks "
+          f"{[int((done == c).sum()) for c in (1, 2, 3)]}/"
+          f"{int((done >= 4).sum())}, {lw['nonzero']} of the pairs with a "
+          f"non-zero alpha: residual mode max abs err {max(e1, e2):.3g} "
+          f"(done threshold ties {n_edge}), {work_line('K1', works['res'])}; "
+          f"K2 max abs err {e3:.3g}, per column err/largest: {cols}; "
+          f"{work_line('K2', works['bwd'])}; reduce err {e4:.3g} (bitwise), "
+          f"{live_pos} live positions, {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.4f}, index_add_ {r['library_ms']:.4f}), bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']}; row index "
+          f"{r['index_ms']:.4f} ms; K2 with the reduce bitwise equal over two "
+          f"launches ({smi})")
+    return works
 
 
 def check_slice(res, label):
@@ -425,9 +712,10 @@ def phase_6a(work):
 
 def phase_6b(work, cams, dev, smi):
     """slam_torch.py + metric_torch.py on ``cams`` written to disk, the
-    reloaded final checkpoint, and K1's residual mode and K2 against their
-    twins on the first windowed global call's launches.  Returns the
-    launch counts of the run and (residual mode error, K2 error)."""
+    reloaded final checkpoint, and K1's residual mode, K2 and the reduce
+    against their twins on the first windowed global call's launches.
+    Returns the launch counts of the run and :func:`check_launch`'s
+    result."""
     import torch
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
@@ -477,7 +765,8 @@ def phase_6b(work, cams, dev, smi):
         fail(f"phase 6b: no windowed global optimize call (calls {calls6})")
     iters6 = sum(n for _, n, _ in calls6)
     for name, need in (("blend_fwd", 1), ("blend_fwd_residual", iters6),
-                       ("blend_fwd_transmission", 1), ("blend_bwd", iters6)):
+                       ("blend_fwd_transmission", 1), ("blend_bwd", iters6),
+                       ("blend_bwd_reduce", iters6)):
         if launches6[name] < need:
             fail(f"phase 6b: {name} launched {launches6[name]} times, needs {need}")
     with open(met6["csv"], newline="") as f:
@@ -527,29 +816,11 @@ def phase_6b(work, cams, dev, smi):
           f"metric_torch {median(met6['frame_ms']):.2f} ms per frame "
           f"(median) ({smi})")
 
-    # K1's residual mode and K2 on the first windowed global call's launches
-    fargs, bargs = captured6["global"]["fwd"], captured6["global"]["bwd"]
-    out, entry, done = blend.blend_tiles(*fargs, residuals=True)
-    ref, ref_entry, ref_done = blend.blend_tiles_reference(*fargs, residuals=True)
-    torch.cuda.synchronize()
-    e1, _, _ = compare_blend(out, ref, fargs[0], fargs[1], fargs[4], fargs[5])
-    e2, n_edge = compare_residuals(entry, done, ref_entry, ref_done, fargs[6])
-    e3, cols = compare_bwd(blend.blend_bwd(*bargs),
-                           blend.blend_bwd_reference(*bargs), "phase 6b global")
-    g_times = (cuda_ms(lambda: blend.blend_tiles(*fargs, residuals=True), 50),
-               cuda_ms(lambda: blend.blend_tiles_reference(*fargs, residuals=True), 5),
-               cuda_ms(lambda: blend.blend_bwd(*bargs), 50),
-               cuda_ms(lambda: blend.blend_bwd_reference(*bargs), 5))
-    walked = bargs[5]
-    print(f"[phase 6b] windowed global optimize launch, {fargs[0].shape[0] - 1} "
-          f"rows, lists {tuple(fargs[2].shape)}, tiles walking 1/2/3/4+ chunks "
-          f"{[int((walked == c).sum()) for c in (1, 2, 3)]}/"
-          f"{int((walked >= 4).sum())}: residual mode max abs err "
-          f"{max(e1, e2):.3g} (done threshold ties {n_edge}), K1 "
-          f"{g_times[0]:.4f} ms, plain {g_times[1]:.4f} ms; K2 max abs err "
-          f"{e3:.3g}, per column err/largest: {cols}; K2 {g_times[2]:.4f} ms, "
-          f"plain {g_times[3]:.4f} ms ({smi})")
-    return launches6, (max(e1, e2), e3)
+    # K1's residual mode, K2 and the reduce on the first windowed global
+    # call's launches
+    works = check_launch("phase 6b global", captured6["global"]["fwd"],
+                         captured6["global"]["bwd"], smi)
+    return launches6, works
 
 
 def main():
@@ -595,17 +866,18 @@ def main():
     ref = blend.blend_tiles_reference(feat, order, lists, counts, origins, 0.6, 1e-4)
     torch.cuda.synchronize()
     err_rand, ct, dt = compare_blend(out, ref, feat, order, origins, 0.6)
-    print(f"[phase 3a] random tiles {tuple(lists.shape)}: max abs err "
+    print(f"[phase 3a] random tiles {tuple(lists.shape)}, counts at the trim "
+          f"edges {trim_edges(lists.shape[1])} among them: max abs err "
           f"{err_rand:.3g}, index near-ties color {ct} depth {dt}")
 
     # ---- phase 3c: K1 residual and transmission modes on random tiles -------
-    out, entry, done = blend.blend_tiles(feat, order, lists, counts, origins,
-                                         0.6, 1e-4, residuals=True)
-    ref, ref_entry, ref_done = blend.blend_tiles_reference(
+    out, *res = blend.blend_tiles(feat, order, lists, counts, origins, 0.6,
+                                  1e-4, residuals=True)
+    ref, *ref_res = blend.blend_tiles_reference(
         feat, order, lists, counts, origins, 0.6, 1e-4, residuals=True)
     torch.cuda.synchronize()
     err_res, _, _ = compare_blend(out, ref, feat, order, origins, 0.6)
-    e, n_edge = compare_residuals(entry, done, ref_entry, ref_done, 1e-4)
+    e, n_edge = compare_residuals(res, ref_res, 1e-4)
     err_res = max(err_res, e)
     cols6 = feat[:, [0, 1, 2, 3, 4, 9]].contiguous()
     err_trans = compare_transmission(
@@ -615,14 +887,24 @@ def main():
           f"(done differs at {n_edge} threshold ties), transmission mode "
           f"{err_trans:.3g}, mask T != 1 equal")
 
-    # ---- phase 3d: K2 vs the plain backward on random tiles ------------------
+    # ---- phase 3d: K2 and the reduce vs the plain backward on random tiles --
     gc, gd, gt = random_cotangents(lists.shape[0], dev)
-    bargs = (feat, order, lists, origins, ref_entry, ref_done, gc, gd,
-             ref.T_final * gt, ref.depth_index, 0.6)
-    err_bwd, cols = compare_bwd(blend.blend_bwd(*bargs),
-                                blend.blend_bwd_reference(*bargs), "phase 3d")
+    bargs = (feat, order, lists, counts, origins, *ref_res[:2], ref_res[2],
+             gc, gd, ref.T_final * gt, ref.depth_index, 0.6)
+    g = blend.blend_bwd(*bargs)
+    if not torch.equal(g, blend.blend_bwd(*bargs)):
+        fail("phase 3d: two launches of K2 and the reduce differ")
+    err_bwd, cols = compare_bwd(g, blend.blend_bwd_reference(*bargs), "phase 3d")
+    index = blend.row_index(lists, counts, feat.shape[0] - 1)
+    partials = blend.blend_bwd_partials(*bargs)
+    err_red = float((blend.blend_bwd_reduce(partials, index, ref_res[1])
+                     - blend.blend_bwd_reduce_reference(partials, index,
+                                                        ref_res[1])).abs().max())
+    if not err_red <= REDUCE_ATOL:
+        fail(f"phase 3d: the reduce differs from its twin by {err_red:.3g}")
     print(f"[phase 3d] random tiles: K2 max abs err {err_bwd:.3g}; per column "
-          f"err/largest: {cols}; phase 3 {time.perf_counter() - t0:.1f} s")
+          f"err/largest: {cols}; reduce err {err_red:.3g}; bitwise equal over "
+          f"two launches; phase 3 {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 4: forward-only loop at 170x300 vs the JAX reference ----------
     t0 = time.perf_counter()
@@ -663,15 +945,20 @@ def main():
     iters = (args.gaussian_update_iter * len(res["optimize_frames"])
              + args.final_global_iter * len(mapper.keyframe_list))
     for name, need in (("blend_fwd", renders), ("blend_fwd_residual", iters),
-                       ("blend_fwd_transmission", 1), ("blend_bwd", iters)):
+                       ("blend_fwd_transmission", 1), ("blend_bwd", iters),
+                       ("blend_bwd_reduce", iters)):
         if launches[name] < need:
             fail(f"phase 5: {name} launched {launches[name]} times, needs {need}")
     if not res["ate_cm"] <= BENCH_ATE_CM:
         fail(f"phase 5: ATE {res['ate_cm']:.4f} cm > {BENCH_ATE_CM} cm")
     if not res["eval"]["psnr"] >= BENCH_PSNR:
         fail(f"phase 5: PSNR {res['eval']['psnr']:.3f} < {BENCH_PSNR}")
+    per_kind = {}
+    for kind, n, _ in calls:
+        per_kind[kind] = per_kind.get(kind, 0) + n
     print(f"[phase 5] launches {launches} for {renders} renders and {iters} "
-          f"gradient iterations; run {run_s:.1f} s")
+          f"gradient iterations (K1 residual, K2 and reduce launches per call "
+          f"kind: {per_kind}); run {run_s:.1f} s")
     for kind in sorted({k for k, _, _ in calls}):
         each = ", ".join(f"{s * 1e3 / n:.2f}" for k, n, s in calls if k == kind)
         print(f"[phase 5] optimize loop, {kind} calls: ms per iteration "
@@ -687,17 +974,8 @@ def main():
     origins = binning.tile_origins(st.height, st.width, dev)
     bargs = (feat, bins.order, bins.tile_lists, bins.tile_counts, origins,
              st.opaque_threshold, st.T_threshold)
-    out = blend.blend_tiles(*bargs)
-    ref = blend.blend_tiles_reference(*bargs)
-    torch.cuda.synchronize()
-    err_real, ct, dt = compare_blend(out, ref, feat, bins.order, origins,
-                                     st.opaque_threshold)
-    k1_ms = cuda_ms(lambda: blend.blend_tiles(*bargs), 50)
-    plain_ms = cuda_ms(lambda: blend.blend_tiles_reference(*bargs), 5)
-    print(f"[phase 3b] 680x1200 frame, tile lists {tuple(bins.tile_lists.shape)}, "
-          f"{int(bins.n_visible)} visible: max abs err {err_real:.3g}, index "
-          f"near-ties color {ct} depth {dt}; K1 {k1_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms ({smi})")
+    inf = check_inference(f"phase 3b 680x1200 frame, {int(bins.n_visible)} "
+                          f"visible", bargs, smi)
 
     # ---- phase 3e: the gradient path's kernels at the main path's shapes ----
     # transmission mode: the stable pool's mask render (global passes)
@@ -709,80 +987,50 @@ def main():
                                st.tile_capacity, st.max_visible)
     targs = (api.transmission_rows(geo, tb.order, stable["opacity"]),
              tb.tile_lists, tb.tile_counts, origins, st.T_threshold)
-    err_trans = max(err_trans, compare_transmission(
-        blend.blend_transmission(*targs), blend.blend_transmission_reference(*targs)))
-    trans_ms = cuda_ms(lambda: blend.blend_transmission(*targs), 50)
-    trans_plain_ms = cuda_ms(lambda: blend.blend_transmission_reference(*targs), 5)
-    print(f"[phase 3e] transmission mode, stable pool, lists "
-          f"{tuple(tb.tile_lists.shape)}: max abs err {err_trans:.3g}; K1 "
-          f"{trans_ms:.4f} ms, plain {trans_plain_ms:.4f} ms")
+    trans = check_transmission("phase 3e stable pool", targs, smi)
 
-    # residual mode and K2 on the launches phase 5 made: the last local
-    # call's compact lists and the final pass's full ones, with the run's
-    # own cotangents
-    times = {}
+    # residual mode, K2 and the reduce on the launches phase 5 made: the last
+    # local call's compact lists and the final pass's full ones, with the
+    # run's own cotangents
+    works = {}
     for kind in ("local", "final"):
         if set(captured.get(kind, {})) != {"fwd", "bwd"}:
             fail(f"phase 5 made no {kind} optimize launch of K1 and K2")
-        fargs, bargs = captured[kind]["fwd"], captured[kind]["bwd"]
-        out, entry, done = blend.blend_tiles(*fargs, residuals=True)
-        ref, ref_entry, ref_done = blend.blend_tiles_reference(
-            *fargs, residuals=True)
-        torch.cuda.synchronize()
-        e1, _, _ = compare_blend(out, ref, fargs[0], fargs[1], fargs[4],
-                                 fargs[5])
-        e2, n_edge = compare_residuals(entry, done, ref_entry, ref_done,
-                                       fargs[6])
-        e3, cols = compare_bwd(blend.blend_bwd(*bargs),
-                               blend.blend_bwd_reference(*bargs),
-                               f"phase 3e {kind}")
-        err_res, err_bwd = max(err_res, e1, e2), max(err_bwd, e3)
-        times[kind] = (
-            cuda_ms(lambda: blend.blend_tiles(*fargs, residuals=True), 50),
-            cuda_ms(lambda: blend.blend_tiles_reference(*fargs, residuals=True), 5),
-            cuda_ms(lambda: blend.blend_bwd(*bargs), 50),
-            cuda_ms(lambda: blend.blend_bwd_reference(*bargs), 5))
-        walked = bargs[5]
-        print(f"[phase 3e] {kind} optimize launch, {fargs[0].shape[0] - 1} "
-              f"rows, lists {tuple(fargs[2].shape)}, tiles walking 1/2/3/4+ "
-              f"chunks {[int((walked == c).sum()) for c in (1, 2, 3)]}/"
-              f"{int((walked >= 4).sum())}: residual mode max abs err "
-              f"{max(e1, e2):.3g} (done threshold ties {n_edge}), K1 "
-              f"{times[kind][0]:.4f} ms, plain {times[kind][1]:.4f} ms; K2 "
-              f"max abs err {e3:.3g}, per column err/largest: {cols}; K2 "
-              f"{times[kind][2]:.4f} ms, plain {times[kind][3]:.4f} ms ({smi})")
-    # the kernels line gives the local calls' shape, where most launches fall
-    res_ms, res_plain_ms, bwd_ms, bwd_plain_ms = times["local"]
+        works[kind] = check_launch(f"phase 3e {kind} optimize launch",
+                                   captured[kind]["fwd"], captured[kind]["bwd"],
+                                   smi)
     print(f"[phase 3b/3e] {time.perf_counter() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         phase_6a(work)
-        _, g_errs = phase_6b(work, cams, dev, smi)
-    err_res, err_bwd = max(err_res, g_errs[0]), max(err_bwd, g_errs[1])
+        _, works["global"] = phase_6b(work, cams, dev, smi)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
+    # the kernels line gives the local calls' shape, where most gradient
+    # launches fall; max_abs_err is the largest of every phase
+    def err(part):
+        return max(w[part]["err"] for w in works.values())
+
+    def entry(name, source, line, w, max_abs_err):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": "rtgslam_tpu/ops/rasterize/pallas_blend.py:" + line,
+                "launches": launches[name], "max_abs_err": max_abs_err,
+                "ms": w["ms"], "plain_ms": w["plain_ms"],
+                "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+                "library_ms": w.get("library_ms"), "live_pairs": w["pairs"]}
+
     src = "rtgslam_torch/csrc/"
+    loc = works["local"]
     print(json.dumps({"kernels": [
-        {"name": "blend_fwd", "route": "cuda", "source": src + "blend_fwd.cu",
-         "replaces": "rtgslam_tpu/ops/rasterize/pallas_blend.py:60",
-         "launches": launches["blend_fwd"],
-         "max_abs_err": max(err_rand, err_real), "ms": k1_ms,
-         "plain_ms": plain_ms},
-        {"name": "blend_fwd_residual", "route": "cuda",
-         "source": src + "blend_fwd.cu",
-         "replaces": "rtgslam_tpu/ops/rasterize/pallas_blend.py:60",
-         "launches": launches["blend_fwd_residual"], "max_abs_err": err_res,
-         "ms": res_ms, "plain_ms": res_plain_ms},
-        {"name": "blend_fwd_transmission", "route": "cuda",
-         "source": src + "blend_fwd.cu",
-         "replaces": "rtgslam_tpu/ops/rasterize/pallas_blend.py:60",
-         "launches": launches["blend_fwd_transmission"],
-         "max_abs_err": err_trans, "ms": trans_ms,
-         "plain_ms": trans_plain_ms},
-        {"name": "blend_bwd", "route": "cuda", "source": src + "blend_bwd.cu",
-         "replaces": "rtgslam_tpu/ops/rasterize/pallas_blend.py:180",
-         "launches": launches["blend_bwd"], "max_abs_err": err_bwd,
-         "ms": bwd_ms, "plain_ms": bwd_plain_ms},
+        entry("blend_fwd", "blend_fwd.cu", "60", inf, max(err_rand, inf["err"])),
+        entry("blend_fwd_residual", "blend_fwd.cu", "60", loc["res"],
+              max(err_res, err("res"))),
+        entry("blend_fwd_transmission", "blend_fwd.cu", "60", trans,
+              max(err_trans, trans["err"])),
+        entry("blend_bwd", "blend_bwd.cu", "180", loc["bwd"],
+              max(err_bwd, err("bwd"))),
+        entry("blend_bwd_reduce", "blend_bwd.cu", "180", loc["reduce"],
+              max(err_red, err("reduce"))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

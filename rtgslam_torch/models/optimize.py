@@ -43,7 +43,7 @@ from ..ops import preprocess
 from ..ops.rasterize import binning
 from ..ops.rasterize.api import (RasterSettings, render, render_compact,
                                  render_transmission, transmission_rows)
-from ..ops.rasterize.blend import CHUNK, blend_transmission
+from ..ops.rasterize.blend import CHUNK, RowIndex, blend_transmission, row_index
 from ..ops.rasterize.project import project_geometry
 from ..ops.segment import stable_partition_order
 from ..utils.geometry import normalize
@@ -173,9 +173,11 @@ def _loss_fn_compact(params_c, aux, frame, settings: RasterSettings, hyper):
     """:func:`_loss_fn` over the pool-compact rows with frozen tile lists
     (``_loss_fn_compact`` :138)."""
     gauss_c = compact_gaussians(params_c, aux["row_valid"])
+    index = (RowIndex(frame["row_ptr_c"], frame["pos_c"])
+             if "row_ptr_c" in frame else None)
     out = render_compact(gauss_c, frame["tile_lists_c"], frame["tile_counts_c"],
                          frame, settings, frame["tile_rows"],
-                         frame["tile_origins"], frame["n_tiles_full"])
+                         frame["tile_origins"], frame["n_tiles_full"], index)
     return _total(out, frame, params_c, aux["update_mask"], hyper)
 
 
@@ -401,16 +403,24 @@ def compact_problem(state: MapState, colors, depths, normals, w2cs, Ks,
     inv[P] = Ac
     lists_a = inv[lists_orig[:, :, :Ktc].long()]
     trows = tile_rows.long()
+    lists_c = torch.gather(
+        lists_a, 1, trows[:, :, None].expand(-1, -1, lists_a.shape[2]))
+    counts_c = torch.gather(torch.clamp(counts, max=Ktc), 1, trows)
     frames = {
         "color": colors, "depth": depths, "normal": normals, "w2c": w2cs,
         "K": Ks, "campos": camposes, "render_mask": rmasks,
-        "tile_lists_c": torch.gather(
-            lists_a, 1, trows[:, :, None].expand(-1, -1, lists_a.shape[2])),
-        "tile_counts_c": torch.gather(torch.clamp(counts, max=Ktc), 1, trows),
+        "tile_lists_c": lists_c, "tile_counts_c": counts_c,
         "tile_rows": trows,
         "tile_origins": binning.tile_origins(settings.height, settings.width,
                                              dev)[trows],
     }
+    if dev.type == "cuda":
+        # the reduce kernel's CSR inverse index of the frozen lists, once per
+        # call (the CPU backward needs none)
+        index = [row_index(lists_c[f], counts_c[f], Ac)
+                 for f in range(lists_c.shape[0])]
+        frames["row_ptr_c"] = torch.stack([ix.row_ptr for ix in index])
+        frames["pos_c"] = torch.stack([ix.pos for ix in index])
     return Compact(rows=rows, row_valid=row_valid,
                    params={k: getattr(state, k)[rows] for k in PARAM_KEYS},
                    update=update_full[rows] & row_valid, hyper=hyper,

@@ -202,7 +202,9 @@ def render_compact(gaussians_c: Dict[str, torch.Tensor],
                    tile_lists_c: torch.Tensor, tile_counts_c: torch.Tensor,
                    camera: Dict[str, torch.Tensor], settings: RasterSettings,
                    tile_rows: torch.Tensor, tile_origins: torch.Tensor,
-                   n_tiles_full: int) -> Dict[str, torch.Tensor]:
+                   n_tiles_full: int,
+                   index: Optional[blend.RowIndex] = None
+                   ) -> Dict[str, torch.Tensor]:
     """Differentiable render over a compact working set (``render_compact``
     :483): the optimize loop's render.
 
@@ -213,14 +215,16 @@ def render_compact(gaussians_c: Dict[str, torch.Tensor],
     their outputs scatter back into the full ``n_tiles_full`` grid, where
     every other tile keeps the zero-trip values (T 1, indices -1), exactly
     what the full-grid blend gives a count-0 tile.  Index maps hold
-    compact row indices."""
+    compact row indices.  ``index``: the lists' :func:`blend.row_index`,
+    which the backward's reduce kernel reads (on CUDA, built per backward
+    when None)."""
     H, W = settings.height, settings.width
     feat = compact_feature_rows(gaussians_c, camera, settings)
     ident = torch.arange(feat.shape[0] - 1, dtype=torch.int32,
                          device=feat.device)
     tiles = blend.blend_tiles_fused(
         feat, ident, tile_lists_c, tile_counts_c, tile_origins,
-        settings.opaque_threshold, settings.T_threshold)
+        settings.opaque_threshold, settings.T_threshold, index)
     rows = tile_rows.long()
 
     def put(fill, x):

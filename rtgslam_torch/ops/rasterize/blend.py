@@ -5,17 +5,21 @@ Port of ``rtgslam_tpu/ops/rasterize/blend.py``.  Each function comes twice:
 
 * a wrapper of a hand-written CUDA kernel for Hopper — :func:`blend_tiles`
   (kernel K1, ``csrc/blend_fwd.cu``; inference and residual modes),
-  :func:`blend_transmission` (K1's transmission mode) and :func:`blend_bwd`
-  (kernel K2, ``csrc/blend_bwd.cu``).  K1 replaces the TPU kernel
-  ``pallas_blend.py::_kernel``, K2 replaces ``pallas_blend.py::_bwd_kernel``.
-  A CUDA tensor goes to the kernel or raises; only a CPU tensor takes the
-  plain version;
+  :func:`blend_transmission` (K1's transmission mode),
+  :func:`blend_bwd_partials` (kernel K2, ``csrc/blend_bwd.cu``: per tile-list
+  position gradients) and :func:`blend_bwd_reduce` (the same source's
+  reduce kernel: their fixed-order sum per feature row, through the CSR
+  inverse index of :func:`row_index`); :func:`blend_bwd` is K2 then the
+  reduce.  K1 replaces the TPU kernel ``pallas_blend.py::_kernel``, K2 with
+  the reduce ``pallas_blend.py::_bwd_kernel``.  A CUDA tensor goes to the
+  kernel or raises; only a CPU tensor takes the plain version;
 * its plain PyTorch twin — :func:`blend_tiles_reference`,
-  :func:`blend_transmission_reference`, :func:`blend_bwd_reference`: per-chunk,
-  all-tiles-at-once transcriptions of the JAX ``_blend_chunk`` (:228) with
-  the early-exit loop of :367-377, of ``blend_transmission`` (:482) and of
-  ``_fused_bwd`` (:726).  Tests and ``chip_smoke.py`` hold the kernels
-  against them.
+  :func:`blend_transmission_reference`, :func:`blend_bwd_partials_reference`,
+  :func:`blend_bwd_reduce_reference` (and :func:`blend_bwd_reference`, the
+  two chained): per-chunk, all-tiles-at-once transcriptions of the JAX
+  ``_blend_chunk`` (:228) with the early-exit loop of :367-377, of
+  ``blend_transmission`` (:482) and of ``_fused_bwd`` (:726).  Tests and
+  ``chip_smoke.py`` hold the kernels against them.
 
 :class:`BlendFunction` is the differentiable blend of the optimize loop
 (``blend_tiles_fused`` :653): K1 in residual mode forward, K2 backward.
@@ -45,12 +49,19 @@ NTRANS = 6   # mean_x mean_y conic_a conic_b conic_c opacity
 NPIX = TILE * TILE
 
 launches = {"blend_fwd": 0, "blend_fwd_residual": 0,
-            "blend_fwd_transmission": 0, "blend_bwd": 0}
+            "blend_fwd_transmission": 0, "blend_bwd": 0,
+            "blend_bwd_reduce": 0}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+class RowIndex(NamedTuple):
+    """CSR inverse index of a set of tile lists (:func:`row_index`)."""
+    row_ptr: torch.Tensor   # [V+2] int32: row r's positions are pos[row_ptr[r]:row_ptr[r+1]]
+    pos: torch.Tensor       # [T*Kt] int32 positions t*Kt + k, by row, ascending
 
 
 class TileOutputs(NamedTuple):
@@ -113,7 +124,7 @@ def _kernel_lib(name: str = "blend_fwd") -> ctypes.CDLL:
             lib.rtg_blend_fwd.argtypes = [
                 _P, _P, _I, _P, _P, _P, _I, _I, _F, _F] + [_P] * 8
             lib.rtg_blend_fwd_residual.argtypes = [
-                _P, _P, _I, _P, _P, _P, _I, _I, _F, _F] + [_P] * 10
+                _P, _P, _I, _P, _P, _P, _I, _I, _F, _F] + [_P] * 11
             lib.rtg_blend_transmission.argtypes = [
                 _P, _I, _P, _P, _P, _I, _I, _F, _P, _P]
             for fn in (lib.rtg_blend_fwd, lib.rtg_blend_fwd_residual,
@@ -121,8 +132,11 @@ def _kernel_lib(name: str = "blend_fwd") -> ctypes.CDLL:
                 fn.restype = _I
         else:
             lib.rtg_blend_bwd.argtypes = [
-                _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P]
-            lib.rtg_blend_bwd.restype = _I
+                _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                _P, _P]
+            lib.rtg_blend_bwd_reduce.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P]
+            for fn in (lib.rtg_blend_bwd, lib.rtg_blend_bwd_reduce):
+                fn.restype = _I
         _libs[name] = lib
     return _libs[name]
 
@@ -156,9 +170,15 @@ def blend_tiles(
     """Blend every tile (the JAX ``blend.blend_tiles`` call contract).
 
     With ``residuals`` also returns what the backward replays, as
-    ``(TileOutputs, entry [T, Kt/chunk, 256], done [T] int32)``: each chunk's
-    entry transmittance (0 for chunks the tile never reached) and the number
-    of chunks processed — the contract of ``_fused_fwd`` (:669-716).
+    ``(TileOutputs, entry [T, Kt/chunk, 256], done [T] int32, chunk_color
+    [T, Kt/chunk, 256, 3])``: each chunk's entry transmittance, the number of
+    chunks processed — the contract of ``_fused_fwd`` (:669-716) — and each
+    chunk's sum of alpha T rgb per pixel, which spares the backward a sweep.
+    For chunks the tile never reached, entry is 0 and chunk_color undefined
+    (the backward never reads it; the plain twin leaves 0).
+
+    List positions at and past a tile's count must hold the sentinel V, as
+    binning leaves them: the kernel stops its walk at the count.
 
     CUDA tensors launch K1 on the current stream; CPU tensors run
     :func:`blend_tiles_reference`."""
@@ -195,10 +215,11 @@ def blend_tiles(
             return out
         entry = torch.empty((T, Kt // min(CHUNK, Kt), NPIX), **f32)
         done = torch.empty((T,), **i32)
+        chunk_color = torch.empty(entry.shape + (3,), **f32)
         if T:
             _launch(lib.rtg_blend_fwd_residual, "blend_fwd_residual", *head,
-                    *_ptrs(entry, done))
-    return out, entry, done
+                    *_ptrs(entry, done, chunk_color))
+    return out, entry, done, chunk_color
 
 
 def blend_tiles_reference(feat, order, tile_lists, tile_counts, origins,
@@ -231,6 +252,7 @@ def blend_tiles_reference(feat, order, tile_lists, tile_counts, origins,
     cw = torch.zeros((T_tiles, NPIX), dtype=dt, device=device)
     entry = torch.zeros((T_tiles, Kt // chunk, NPIX), dtype=dt, device=device)
     done = torch.zeros((T_tiles,), dtype=torch.int32, device=device)
+    chunk_color = torch.zeros(entry.shape + (3,), dtype=dt, device=device)
 
     for c in range(Kt // chunk):
         active = (c < n_chunks) & (Tm.amax(dim=1) > T_threshold)
@@ -247,7 +269,8 @@ def blend_tiles_reference(feat, order, tile_lists, tile_counts, origins,
         excl = torch.exp(torch.log1p(-alpha) @ tri)   # exclusive product
         T_a = Tm[a]
         w = alpha * (T_a[:, :, None] * excl)          # [A, 256, C]
-        color[a] = color[a] + w @ f[:, :, 6:9]
+        chunk_color[a, c] = w @ f[:, :, 6:9]
+        color[a] = color[a] + chunk_color[a, c]
 
         has_hit = opaque.any(dim=2)
         first = torch.argmax(opaque.to(torch.uint8), dim=2, keepdim=True)
@@ -269,7 +292,7 @@ def blend_tiles_reference(feat, order, tile_lists, tile_counts, origins,
     out = TileOutputs(color=color, depth=depth, depth_index=didx,
                       color_index=cidx, depth_weight=dw, color_weight=cw,
                       T_final=Tm)
-    return (out, entry, done) if residuals else out
+    return (out, entry, done, chunk_color) if residuals else out
 
 
 def _chunk_alphas(f, pix):
@@ -345,34 +368,60 @@ def blend_transmission_reference(cols, tile_lists, tile_counts, origins,
 
 
 # ---------------------------------------------------------------------------
-# backward blend: K2
+# backward blend: K2 and its reduce
 # ---------------------------------------------------------------------------
 
-def blend_bwd(
-    feat: torch.Tensor,         # [V+1, 11] the forward's rows
-    order: torch.Tensor,        # [V] int32
-    tile_lists: torch.Tensor,   # [T, Kt] int32
-    origins: torch.Tensor,      # [T, 2]
-    entry: torch.Tensor,        # [T, Kt/chunk, 256] the forward's entry T
-    done: torch.Tensor,         # [T] int32 chunks the forward processed
-    g_color: torch.Tensor,      # [T, 256, 3] cotangent of color
-    g_depth: torch.Tensor,      # [T, 256]
-    tfin_gt: torch.Tensor,      # [T, 256] T_final * cotangent of T_final
-    depth_index: torch.Tensor,  # [T, 256] int32 the forward's depth hits
-    opaque_threshold: float,
-) -> torch.Tensor:
-    """d loss / d feat [V+1, 11] of the blend (``_fused_bwd`` :726 and the
-    TPU kernel ``blend_bwd_pallas`` :308), summed over every tile list the
-    row appears in; the elig column gets 0.
+NGRAD = 10   # gradient columns K2 writes: every column but elig
+REDUCE_LANES = 16   # lanes per feature row in the reduce kernel
 
-    CUDA tensors launch K2 on the current stream (it ``atomicAdd``s each
-    tile's per-entry sums, so the summation order varies between runs);
-    CPU tensors run :func:`blend_bwd_reference`."""
-    _check(feat, NFEAT, tile_lists, origins,
-           (("order", order), ("done", done), ("depth_index", depth_index)))
+
+def row_index(tile_lists: torch.Tensor, tile_counts: torch.Tensor,
+              n_rows: int) -> RowIndex:
+    """The CSR inverse index of ``tile_lists`` [T, Kt] over the feature rows
+    ``0..n_rows-1`` (``n_rows`` = V): a stable sort of the flattened lists,
+    so each row's positions ``t*Kt + k`` come in ascending (tile, position)
+    order.  Positions at or past their tile's count, sentinel entries and
+    out-of-contract entries all sort into the sentinel row V's segment,
+    which no row reads.  Built once per set of lists: the compact optimize
+    loop freezes its lists for a whole call.  No host synchronization: the
+    row pointers are a search of the sorted keys."""
     T, Kt = tile_lists.shape
-    shapes = {"entry": (entry, (T, Kt // min(CHUNK, Kt), NPIX)),
-              "done": (done, (T,)), "g_color": (g_color, (T, NPIX, 3)),
+    k = torch.arange(Kt, dtype=torch.int32, device=tile_lists.device)
+    keys = torch.where(k[None, :] < tile_counts[:, None], tile_lists,
+                       n_rows).reshape(-1)
+    keys = torch.where((keys < 0) | (keys > n_rows), n_rows, keys)
+    sorted_keys, pos = torch.sort(keys, stable=True)
+    rows = torch.arange(n_rows + 2, dtype=torch.int32, device=keys.device)
+    row_ptr = torch.searchsorted(sorted_keys, rows, out_int32=True)
+    return RowIndex(row_ptr=row_ptr, pos=pos.to(torch.int32))
+
+
+def _check_index(index: RowIndex, n_rows: int, n_pos: int, done, device):
+    """The row index's and ``done``'s dtypes, shapes and device."""
+    for name, x, shape in (("row_ptr", index.row_ptr, (n_rows + 2,)),
+                           ("pos", index.pos, (n_pos,)),
+                           ("done", done, done.shape[:1])):
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+        if tuple(x.shape) != shape or x.ndim != 1:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, not {device}")
+
+
+def _check_bwd(feat, order, tile_lists, tile_counts, origins, entry, done,
+               chunk_color, g_color, g_depth, tfin_gt, depth_index):
+    """Shapes, dtypes and devices of the backward's arguments."""
+    _check(feat, NFEAT, tile_lists, origins,
+           (("order", order), ("tile_counts", tile_counts), ("done", done),
+            ("depth_index", depth_index)))
+    T, Kt = tile_lists.shape
+    n_chunks = Kt // min(CHUNK, Kt)
+    shapes = {"order": (order, (feat.shape[0] - 1,)),
+              "tile_counts": (tile_counts, (T,)),
+              "entry": (entry, (T, n_chunks, NPIX)), "done": (done, (T,)),
+              "chunk_color": (chunk_color, (T, n_chunks, NPIX, 3)),
+              "g_color": (g_color, (T, NPIX, 3)),
               "g_depth": (g_depth, (T, NPIX)), "tfin_gt": (tfin_gt, (T, NPIX)),
               "depth_index": (depth_index, (T, NPIX))}
     for name, (x, shape) in shapes.items():
@@ -382,33 +431,155 @@ def blend_bwd(
             raise ValueError(f"{name} is on {x.device}, feat on {feat.device}")
         if x.is_floating_point() and x.dtype != feat.dtype:
             raise TypeError(f"{name} must be {feat.dtype}, got {x.dtype}")
+
+
+def blend_bwd(
+    feat: torch.Tensor,         # [V+1, 11] the forward's rows
+    order: torch.Tensor,        # [V] int32
+    tile_lists: torch.Tensor,   # [T, Kt] int32
+    tile_counts: torch.Tensor,  # [T] int32
+    origins: torch.Tensor,      # [T, 2]
+    entry: torch.Tensor,        # [T, Kt/chunk, 256] the forward's entry T
+    done: torch.Tensor,         # [T] int32 chunks the forward processed
+    chunk_color: torch.Tensor,  # [T, Kt/chunk, 256, 3] the forward's chunk colours
+    g_color: torch.Tensor,      # [T, 256, 3] cotangent of color
+    g_depth: torch.Tensor,      # [T, 256]
+    tfin_gt: torch.Tensor,      # [T, 256] T_final * cotangent of T_final
+    depth_index: torch.Tensor,  # [T, 256] int32 the forward's depth hits
+    opaque_threshold: float,
+    index: "RowIndex | None" = None,   # row_index(tile_lists, tile_counts, V)
+) -> torch.Tensor:
+    """d loss / d feat [V+1, 11] of the blend (``_fused_bwd`` :726 and the
+    TPU kernel ``blend_bwd_pallas`` :308), summed over every tile list the
+    row appears in; the elig column and the sentinel row get 0.
+
+    CUDA tensors run :func:`blend_bwd_partials` (K2) then
+    :func:`blend_bwd_reduce`, through ``index`` (built here when the caller
+    has none); every sum has a fixed order, so the result is bitwise
+    repeatable.  CPU tensors run :func:`blend_bwd_reference`."""
+    if index is not None:
+        _check_index(index, feat.shape[0] - 1, tile_lists.numel(), done,
+                     feat.device)
     if feat.device.type == "cpu":
-        return blend_bwd_reference(feat, order, tile_lists, origins, entry,
-                                   done, g_color, g_depth, tfin_gt,
-                                   depth_index, opaque_threshold)
-    args = [x.contiguous() for x in (feat, order, tile_lists, origins, entry,
-                                     done, g_color, g_depth, tfin_gt,
-                                     depth_index)]
-    # atomics accumulate into it, so it starts at zero
-    g_feat = torch.zeros_like(args[0])
+        _check_bwd(feat, order, tile_lists, tile_counts, origins, entry, done,
+                   chunk_color, g_color, g_depth, tfin_gt, depth_index)
+        return blend_bwd_reference(feat, order, tile_lists, tile_counts,
+                                   origins, entry, done, chunk_color, g_color,
+                                   g_depth, tfin_gt, depth_index,
+                                   opaque_threshold)
+    partials = blend_bwd_partials(feat, order, tile_lists, tile_counts,
+                                  origins, entry, done, chunk_color, g_color,
+                                  g_depth, tfin_gt, depth_index,
+                                  opaque_threshold)
+    if index is None:
+        index = row_index(tile_lists, tile_counts, feat.shape[0] - 1)
+    return blend_bwd_reduce(partials, index, done)
+
+
+def blend_bwd_partials(feat, order, tile_lists, tile_counts, origins, entry,
+                       done, chunk_color, g_color, g_depth, tfin_gt,
+                       depth_index, opaque_threshold):
+    """The backward's gradient of every tile-list position, [T, Kt, 10]
+    (:func:`blend_bwd`'s arguments but the index).  CUDA
+    tensors launch K2, which writes the positions below the tile's count
+    inside its first ``done`` chunks and leaves the others undefined; CPU
+    tensors run :func:`blend_bwd_partials_reference`."""
+    _check_bwd(feat, order, tile_lists, tile_counts, origins, entry, done,
+               chunk_color, g_color, g_depth, tfin_gt, depth_index)
+    if feat.device.type == "cpu":
+        return blend_bwd_partials_reference(
+            feat, order, tile_lists, tile_counts, origins, entry, done,
+            chunk_color, g_color, g_depth, tfin_gt, depth_index,
+            opaque_threshold)
+    T, Kt = tile_lists.shape
+    args = [x.contiguous() for x in (feat, order, tile_lists, tile_counts,
+                                     origins, entry, done, chunk_color,
+                                     g_color, g_depth, tfin_gt, depth_index)]
+    partials = torch.empty((T, Kt, NGRAD), dtype=torch.float32,
+                           device=feat.device)
     with torch.cuda.device(feat.device):
         if T:
             _launch(_kernel_lib("blend_bwd").rtg_blend_bwd, "blend_bwd",
                     *_ptrs(*args[:2]), order.shape[0], *_ptrs(*args[2:]),
-                    T, Kt, float(opaque_threshold), g_feat.data_ptr())
+                    T, Kt, float(opaque_threshold), partials.data_ptr())
+    return partials
+
+
+def blend_bwd_reduce(partials: torch.Tensor, index: RowIndex,
+                     done: torch.Tensor) -> torch.Tensor:
+    """Each feature row's sum of its positions' ``partials`` [T, Kt, 10], in
+    ascending (tile, position) order, skipping chunks at or past ``done``:
+    [V+1, 11], the elig column and the sentinel row V 0.  CUDA tensors
+    launch the reduce kernel of ``csrc/blend_bwd.cu``; CPU tensors run
+    :func:`blend_bwd_reduce_reference`."""
+    T, Kt = partials.shape[:2]
+    V = index.row_ptr.shape[0] - 2
+    if partials.shape != (T, Kt, NGRAD):
+        raise ValueError(f"partials must be [T, Kt, {NGRAD}], got "
+                         f"{tuple(partials.shape)}")
+    pdt = partials.dtype
+    if pdt != torch.float32 and not (pdt == torch.float64
+                                     and partials.device.type == "cpu"):
+        raise TypeError(f"partials must be float32, got {pdt}")
+    if done.shape != (T,):
+        raise ValueError(f"done must be ({T},), got {tuple(done.shape)}")
+    _check_index(index, V, T * Kt, done, partials.device)
+    if partials.device.type == "cpu":
+        return blend_bwd_reduce_reference(partials, index, done)
+    if partials.device.type != "cuda":
+        raise ValueError(f"the reduce runs on cuda or cpu, not {partials.device}")
+    args = [x.contiguous() for x in (partials, index.row_ptr, index.pos, done)]
+    g_feat = torch.empty((V + 1, NFEAT), dtype=torch.float32,
+                         device=partials.device)
+    with torch.cuda.device(partials.device):
+        _launch(_kernel_lib("blend_bwd").rtg_blend_bwd_reduce,
+                "blend_bwd_reduce", *_ptrs(*args), V, Kt, g_feat.data_ptr())
     return g_feat
 
 
-def blend_bwd_reference(feat, order, tile_lists, origins, entry, done,
-                        g_color, g_depth, tfin_gt, depth_index,
-                        opaque_threshold):
-    """Plain PyTorch twin of :func:`blend_bwd` (same arguments): the chunks
-    from the last one processed down to 0, over all tiles that processed a
-    chunk at once, with the JAX ``_fused_bwd`` math — log-space transmittance
-    from the entry T, suffix sums as a triangular matmul, the pixel
-    reductions summed directly (the moment-basis matmul is a TPU layout
-    device and is not carried over).  Per-entry gradients are index-added
-    into the feature table's rows."""
+def blend_bwd_reference(feat, order, tile_lists, tile_counts, origins, entry,
+                        done, chunk_color, g_color, g_depth, tfin_gt,
+                        depth_index, opaque_threshold, index=None):
+    """Plain PyTorch twin of :func:`blend_bwd` (same arguments): the
+    per-position gradients of :func:`_bwd_chunks` index-added into the
+    feature rows chunk by chunk (sequential on the CPU).  It forms the
+    chunk totals itself and needs no index, so ``tile_counts``,
+    ``chunk_color`` and ``index`` only share the kernels' arguments."""
+    g_feat = torch.zeros_like(feat)
+    for _, _, rows, g in _bwd_chunks(feat, order, tile_lists, origins, entry,
+                                     done, g_color, g_depth, tfin_gt,
+                                     depth_index, opaque_threshold):
+        g = torch.cat([g, torch.zeros_like(g[..., :1])], dim=-1)
+        g_feat.index_add_(0, rows.reshape(-1), g.reshape(-1, NFEAT))
+    # the sentinel row is a constant, not a feature
+    g_feat[-1] = 0.0
+    return g_feat
+
+
+def blend_bwd_partials_reference(feat, order, tile_lists, tile_counts,
+                                 origins, entry, done, chunk_color, g_color,
+                                 g_depth, tfin_gt, depth_index,
+                                 opaque_threshold):
+    """Plain PyTorch twin of :func:`blend_bwd_partials`: :func:`_bwd_chunks`
+    written into [T, Kt, 10]; positions never processed are 0."""
+    chunk = min(CHUNK, tile_lists.shape[1])
+    partials = feat.new_zeros(tile_lists.shape + (NGRAD,))
+    for a, c, _, g in _bwd_chunks(feat, order, tile_lists, origins, entry,
+                                  done, g_color, g_depth, tfin_gt,
+                                  depth_index, opaque_threshold):
+        partials[a, c * chunk:(c + 1) * chunk] = g
+    return partials
+
+
+def _bwd_chunks(feat, order, tile_lists, origins, entry, done, g_color,
+                g_depth, tfin_gt, depth_index, opaque_threshold):
+    """The backward chunk by chunk, from the last one processed down to 0,
+    over all tiles that processed a chunk at once, with the JAX
+    ``_fused_bwd`` math — log-space transmittance from the entry T, suffix
+    sums as a triangular matmul, the pixel reductions summed directly (the
+    moment-basis matmul is a TPU layout device and is not carried over).
+    Whole chunks: past the count the sentinel rows give 0.  Yields (tiles
+    [A], chunk c, their rows [A, C], per-position gradients [A, C, 10])."""
     dt = feat.dtype
     T_tiles, Kt = tile_lists.shape
     chunk = min(CHUNK, Kt)
@@ -419,7 +590,6 @@ def blend_bwd_reference(feat, order, tile_lists, origins, entry, done,
                         diagonal=-1)   # row j feeds column i < j: suffix-excl
     tri_up = tri_lo.T.contiguous()     # row j feeds column i > j: prefix-excl
     s_carry = torch.zeros((T_tiles, NPIX), dtype=dt, device=feat.device)
-    g_feat = torch.zeros_like(feat)
     n_done = done.long()
     for c in range(int(n_done.max()) - 1 if T_tiles else -1, -1, -1):
         a = torch.nonzero(n_done > c).squeeze(1)
@@ -444,7 +614,7 @@ def blend_bwd_reference(feat, order, tile_lists, origins, entry, done,
         didx = depth_index[a][:, :, None]
         hit = opaque & (gidx[:, None, :] == didx) & (didx >= 0)
         g_rgb = w.transpose(1, 2) @ gc                        # [A, C, 3]
-        g_chunk = torch.stack([
+        yield a, c, rows, torch.stack([
             torch.sum(gpow * (ca * dx + cb * dy), dim=1),
             torch.sum(gpow * (cc * dy + cb * dx), dim=1),
             torch.sum(gpow * (-0.5 * dx * dx), dim=1),
@@ -453,12 +623,35 @@ def blend_bwd_reference(feat, order, tile_lists, origins, entry, done,
             torch.sum(torch.where(hit, g_depth[a][:, :, None], 0.0), dim=1),
             g_rgb[..., 0], g_rgb[..., 1], g_rgb[..., 2],
             torch.sum(galpha * e, dim=1),
-            torch.zeros_like(gpow[:, 0]),
-        ], dim=-1)                                            # [A, C, 11]
-        g_feat.index_add_(0, rows.reshape(-1), g_chunk.reshape(-1, NFEAT))
+        ], dim=-1)                                            # [A, C, 10]
         s_carry[a] = s_carry[a] + torch.sum(wg, dim=2)
-    # the sentinel row is a constant, not a feature
-    g_feat[-1] = 0.0
+
+
+def blend_bwd_reduce_reference(partials, index: RowIndex, done):
+    """Plain PyTorch twin of :func:`blend_bwd_reduce`, in the kernel's order
+    of additions, so on the same inputs the two agree bitwise: lane l of
+    row r's 16 adds the row's positions l, l + 16, ... in order; the 16 lane
+    sums are then added pairwise over lane bits 3, 2, 1, 0."""
+    T, Kt = partials.shape[:2]
+    chunk = min(CHUNK, Kt) if Kt else 1
+    V = index.row_ptr.shape[0] - 2
+    q = index.pos.long()
+    live = (q % max(Kt, 1)) // chunk < done.long()[q // max(Kt, 1)]
+    vals = torch.where(live[:, None], partials.reshape(-1, NGRAD)[q], 0.0)
+    start = index.row_ptr[:-2].long()
+    length = index.row_ptr[1:-1].long() - start
+    lane = torch.arange(REDUCE_LANES, device=partials.device)
+    acc = partials.new_zeros((V, REDUCE_LANES, NGRAD))
+    for r in range(-(-int(length.max()) // REDUCE_LANES) if V else 0):
+        i = r * REDUCE_LANES + lane[None]                          # [V, 16]
+        has = i < length[:, None]
+        at = torch.where(has, start[:, None] + i, 0)
+        acc = acc + torch.where(has[..., None], vals[at], 0.0)
+    while acc.shape[1] > 1:
+        half = acc.shape[1] // 2
+        acc = acc[:, :half] + acc[:, half:]
+    g_feat = partials.new_zeros((V + 1, NFEAT))
+    g_feat[:V, :NGRAD] = acc[:, 0]
     return g_feat
 
 
@@ -468,43 +661,50 @@ def blend_bwd_reference(feat, order, tile_lists, origins, entry, done,
 
 class BlendFunction(torch.autograd.Function):
     """``blend_tiles_fused`` (:653): the forward is :func:`blend_tiles` in
-    residual mode (K1), the backward :func:`blend_bwd` (K2).  Differentiable
-    in ``feat`` only, through color, depth and T_final; the index maps and
-    hit weights are not differentiable (:602-604).
+    residual mode (K1), the backward :func:`blend_bwd` (K2 and the reduce).
+    Differentiable in ``feat`` only, through color, depth and T_final; the
+    index maps and hit weights are not differentiable (:602-604).
 
     ``BlendFunction.apply(feat, order, tile_lists, tile_counts, origins,
-    opaque_threshold, T_threshold)`` returns the seven TileOutputs fields."""
+    opaque_threshold, T_threshold, index)`` returns the seven TileOutputs
+    fields; ``index`` is the lists' :func:`row_index`, or None to build it
+    in the backward."""
 
     @staticmethod
     def forward(ctx, feat, order, tile_lists, tile_counts, origins,
-                opaque_threshold, T_threshold):
-        out, entry, done = blend_tiles(feat, order, tile_lists, tile_counts,
-                                       origins, opaque_threshold, T_threshold,
-                                       residuals=True)
-        ctx.save_for_backward(feat, order, tile_lists, origins, entry, done,
-                              out.T_final, out.depth_index)
+                opaque_threshold, T_threshold, index=None):
+        out, entry, done, chunk_color = blend_tiles(
+            feat, order, tile_lists, tile_counts, origins, opaque_threshold,
+            T_threshold, residuals=True)
+        ctx.save_for_backward(feat, order, tile_lists, tile_counts, origins,
+                              entry, done, chunk_color, out.T_final,
+                              out.depth_index)
         ctx.opaque_threshold = opaque_threshold
+        ctx.index = index
         ctx.mark_non_differentiable(out.depth_index, out.color_index,
                                     out.depth_weight, out.color_weight)
         return tuple(out)
 
     @staticmethod
     def backward(ctx, g_color, g_depth, _gdi, _gci, _gdw, _gcw, g_T):
-        feat, order, tile_lists, origins, entry, done, T_fin, didx = \
-            ctx.saved_tensors
+        (feat, order, tile_lists, tile_counts, origins, entry, done,
+         chunk_color, T_fin, didx) = ctx.saved_tensors
         zero = torch.zeros_like(T_fin)
         g_color = zero[..., None].expand(-1, -1, 3) if g_color is None else g_color
+        # positional, so a caller that wraps blend_bwd sees every argument
         g_feat = blend_bwd(
-            feat, order, tile_lists, origins, entry, done, g_color,
-            zero if g_depth is None else g_depth,
-            zero if g_T is None else T_fin * g_T,
-            didx, ctx.opaque_threshold)
-        return g_feat, None, None, None, None, None, None
+            feat, order, tile_lists, tile_counts, origins, entry, done,
+            chunk_color, g_color, zero if g_depth is None else g_depth,
+            zero if g_T is None else T_fin * g_T, didx, ctx.opaque_threshold,
+            ctx.index)
+        return g_feat, None, None, None, None, None, None, None
 
 
 def blend_tiles_fused(feat, order, tile_lists, tile_counts, origins,
-                      opaque_threshold, T_threshold=1e-4) -> TileOutputs:
-    """The differentiable blend as a :class:`TileOutputs`."""
+                      opaque_threshold, T_threshold=1e-4,
+                      index=None) -> TileOutputs:
+    """The differentiable blend as a :class:`TileOutputs`; ``index`` as in
+    :class:`BlendFunction`."""
     return TileOutputs(*BlendFunction.apply(
         feat, order, tile_lists, tile_counts, origins, opaque_threshold,
-        T_threshold))
+        T_threshold, index))

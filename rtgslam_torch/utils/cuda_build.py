@@ -3,12 +3,14 @@
 Each ``rtgslam_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` at first use (never at import) into
 ``build/rtgslam_torch/`` at the repository root.  The library file name
-carries a hash of the source and the flags, so an edited kernel rebuilds.
+carries a hash of the source, of every ``csrc/*.cuh`` header and of the
+flags, so an edited kernel or header rebuilds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -20,7 +22,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "rtgslam_torch")
 # no --use_fast_math (expf must hold 1e-5 against the plain twin) and no FMA
-# contraction, so the kernel rounds like the elementwise plain version
+# contraction by the compiler: every fused multiply-add is an explicit
+# __fmaf_rn in the source, and the one approximate intrinsic, K2's
+# __fdividef, is written out there too (csrc/blend_common.cuh says which)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -50,9 +54,11 @@ def build(*names: str) -> None:
             if name in _libs:
                 continue
             src = os.path.join(CSRC, name + ".cu")
-            with open(src, "rb") as f:
-                digest = hashlib.sha256(
-                    f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+            for part in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+                with open(part, "rb") as f:
+                    h.update(f.read())
+            digest = h.hexdigest()[:16]
             path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
             build_info[name] = {"seconds": 0.0, "ptxas": "", "path": path}
             if not os.path.exists(path):

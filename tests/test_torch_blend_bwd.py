@@ -115,7 +115,7 @@ def test_residual_forward_matches_fused_vjp_residuals(case):
     want, res = jblend._fused_fwd(cols.gather(jnp.asarray(lists)), gidx,
                                   jnp.asarray(counts), jnp.asarray(origins),
                                   OPAQUE, T_THR)
-    got, entry, done = tblend.blend_tiles(
+    got, entry, done, _ = tblend.blend_tiles(
         *(_t(x) for x in (feat, order, lists, counts, origins)), OPAQUE, T_THR,
         residuals=True)
     assert np.array_equal(done.numpy(), np.asarray(res[4]))
@@ -200,13 +200,14 @@ def test_backward_matches_pallas_interpret():
     feat, order, lists, counts, origins = random_tiles(1)
     T = lists.shape[0]
     wc, wd, wt = _cotangents(5, T)
-    out, entry, done = tblend.blend_tiles(
+    out, entry, done, chunk_color = tblend.blend_tiles(
         *(_t(x) for x in (feat, order, lists, counts, origins)), OPAQUE, T_THR,
         residuals=True)
     tfin_gt = out.T_final.numpy() * wt
     got = tblend.blend_bwd_reference(
-        _t(feat), _t(order), _t(lists), _t(origins), entry, done, _t(wc),
-        _t(wd), _t(tfin_gt), out.depth_index, OPAQUE).numpy()
+        _t(feat), _t(order), _t(lists), _t(counts), _t(origins), entry, done,
+        chunk_color, _t(wc), _t(wd), _t(tfin_gt), out.depth_index,
+        OPAQUE).numpy()
 
     cols, gidx = _jax_fused_inputs(feat, order, lists)
     per_entry = np.asarray(blend_bwd_pallas(
@@ -255,19 +256,154 @@ def test_wrappers_take_plain_path_on_cpu():
     feat, order, lists, counts, origins = (
         _t(x) for x in random_tiles(3, T=3, Kt=128))
     before = dict(tblend.launches)
-    out, entry, done = tblend.blend_tiles(feat, order, lists, counts, origins,
-                                          OPAQUE, T_THR, residuals=True)
+    out, entry, done, chunk_color = tblend.blend_tiles(
+        feat, order, lists, counts, origins, OPAQUE, T_THR, residuals=True)
     tblend.blend_transmission(feat[:, [0, 1, 2, 3, 4, 9]].contiguous(), lists,
                               counts, origins)
-    g = tblend.blend_bwd(feat, order, lists, origins, entry, done, out.color,
-                         out.depth, out.T_final, out.depth_index, OPAQUE)
+    bargs = (feat, order, lists, counts, origins, entry, done, chunk_color,
+             out.color, out.depth, out.T_final, out.depth_index, OPAQUE)
+    g = tblend.blend_bwd(*bargs)
+    partials = tblend.blend_bwd_partials(*bargs)
+    index = tblend.row_index(lists, counts, feat.shape[0] - 1)
+    tblend.blend_bwd_reduce(partials, index, done)
     assert tblend.launches == before   # no kernel launch on CPU
-    assert torch.equal(g, tblend.blend_bwd_reference(
-        feat, order, lists, origins, entry, done, out.color, out.depth,
-        out.T_final, out.depth_index, OPAQUE))
+    assert torch.equal(g, tblend.blend_bwd_reference(*bargs))
+    # the kernels' split (per-position partials, then the reduce) gives the
+    # same gradient, summed in another order
+    _assert_grads(tblend.blend_bwd_reduce_reference(
+        partials, index, done).numpy()[:-1], g.numpy()[:-1])
     with pytest.raises(ValueError):
-        tblend.blend_bwd(feat, order, lists, origins, entry[:1], done,
-                         out.color, out.depth, out.T_final, out.depth_index,
-                         OPAQUE)
+        tblend.blend_bwd(*bargs[:5], entry[:1], *bargs[6:])
     with pytest.raises(TypeError):
         tblend.blend_transmission(feat[:, :6].double(), lists, counts, origins)
+
+
+def _bwd_args(seed=3, T=3, Kt=256):
+    feat, order, lists, counts, origins = (
+        _t(x) for x in random_tiles(seed, T=T, Kt=Kt))
+    out, entry, done, chunk_color = tblend.blend_tiles(
+        feat, order, lists, counts, origins, OPAQUE, T_THR, residuals=True)
+    wc, wd, wt = (_t(x) for x in _cotangents(seed, T))
+    return (feat, order, lists, counts, origins, entry, done, chunk_color, wc,
+            wd, out.T_final * wt, out.depth_index, OPAQUE)
+
+
+BAD_BWD_ARGS = {
+    # argument position: (bad value maker, error)
+    "tile_counts shape": (3, lambda x: x[:-1], ValueError),
+    "tile_counts dtype": (3, lambda x: x.long(), TypeError),
+    "chunk_color shape": (7, lambda x: x[..., :2], ValueError),
+    "chunk_color dtype": (7, lambda x: x.double(), TypeError),
+    "entry shape": (5, lambda x: x[:, :1], ValueError),
+    "done dtype": (6, lambda x: x.long(), TypeError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_BWD_ARGS))
+def test_blend_bwd_rejects_bad_arguments(case):
+    """A wrong shape or dtype of the backward's arguments raises, on the CPU
+    as it would before a kernel launch."""
+    i, bad, err = BAD_BWD_ARGS[case]
+    args = list(_bwd_args())
+    args[i] = bad(args[i])
+    with pytest.raises(err):
+        tblend.blend_bwd(*args)
+
+
+@pytest.mark.parametrize("case", ["row_ptr shape", "pos dtype", "pos shape"])
+def test_blend_bwd_rejects_bad_index(case):
+    args = _bwd_args()
+    feat, lists, counts = args[0], args[2], args[3]
+    index = tblend.row_index(lists, counts, feat.shape[0] - 1)
+    index = {"row_ptr shape": index._replace(row_ptr=index.row_ptr[:-1]),
+             "pos dtype": index._replace(pos=index.pos.long()),
+             "pos shape": index._replace(pos=index.pos[1:])}[case]
+    with pytest.raises((ValueError, TypeError)):
+        tblend.blend_bwd(*args, index)
+    if case.startswith("pos"):   # the reduce alone reads V from row_ptr
+        with pytest.raises((ValueError, TypeError)):
+            tblend.blend_bwd_reduce(torch.zeros(lists.shape + (tblend.NGRAD,)),
+                                    index, args[6])
+
+
+@pytest.mark.parametrize("seed,Kt", [(0, 128), (1, 384), (2, 64)])
+def test_row_index_matches_brute_force(seed, Kt):
+    """The CSR inverse index against a Python loop: every row's positions
+    t*Kt + k (k below the tile's count) in ascending order, the sentinel
+    row's and the positions past the count left out, rows of count 0
+    empty."""
+    feat, _, lists, counts, _ = random_tiles(seed, T=5, Kt=Kt)
+    V = feat.shape[0] - 1
+    lists = lists.copy()
+    lists[1, counts[1]:] = 7          # non-sentinel rows past the count
+    lists[2, 0] = V                   # a sentinel inside the count
+    index = tblend.row_index(_t(lists), _t(counts), V)
+    want = [[] for _ in range(V)]
+    for t in range(lists.shape[0]):
+        for k in range(int(counts[t])):
+            if lists[t, k] < V:
+                want[lists[t, k]].append(t * Kt + k)
+    row_ptr, pos = index.row_ptr.numpy(), index.pos.numpy()
+    assert index.row_ptr.dtype == index.pos.dtype == torch.int32
+    assert row_ptr.shape == (V + 2,) and pos.shape == (lists.size,)
+    assert row_ptr[0] == 0 and row_ptr[-1] == lists.size
+    for r in range(V):
+        assert pos[row_ptr[r]:row_ptr[r + 1]].tolist() == want[r], r
+    assert any(not w for w in want)   # rows of count 0 are there
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_reduce_twin_matches_index_add(dtype):
+    """The reduce's plain twin against ``index_add_`` of every live
+    position's partials into its row (positions past the count or in
+    chunks at or past ``done`` add nothing)."""
+    feat, _, lists, counts, _ = random_tiles(4, T=6, Kt=384)
+    V = feat.shape[0] - 1
+    T, Kt = lists.shape
+    rng = np.random.default_rng(4)
+    partials = _t(rng.standard_normal((T, Kt, tblend.NGRAD))).to(dtype)
+    done = _t(np.array([0, 1, 3, 2, 1, 3], np.int32))
+    index = tblend.row_index(_t(lists), _t(counts), V)
+    got = tblend.blend_bwd_reduce(partials, index, done)
+    k = np.arange(Kt)
+    live = (k[None] < counts[:, None]) & (k[None] // 128 < done.numpy()[:, None])
+    live &= lists < V
+    want = torch.zeros((V + 1, 11), dtype=dtype)
+    want[:, :10].index_add_(0, _t(lists[live]).long(), partials[_t(live)])
+    assert got.dtype == dtype and got.shape == (V + 1, 11)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=tol)
+    assert np.all(got.numpy()[V] == 0) and np.all(got.numpy()[:, 10] == 0)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_chunk_color_sums_to_color(case):
+    """The residual twin's per-chunk colour sums, added over the chunks,
+    give its colour (float64: the twin adds them in chunk order), and are 0
+    for the chunks a tile never reached."""
+    feat, order, lists, counts, origins = CASES[case]()
+    out, entry, done, chunk_color = tblend.blend_tiles(
+        _t(feat).double(), _t(order), _t(lists), _t(counts),
+        _t(origins).double(), OPAQUE, T_THR, residuals=True)
+    assert chunk_color.shape == entry.shape + (3,)
+    np.testing.assert_allclose(chunk_color.sum(dim=1).numpy(),
+                               out.color.numpy(), rtol=0, atol=1e-12)
+    reached = torch.arange(entry.shape[1])[None] < done[:, None]
+    assert torch.all(chunk_color[~reached] == 0)
+
+
+def test_backward_with_prebuilt_index():
+    """``BlendFunction`` with the lists' row index built ahead (the compact
+    optimize loop's way) gives the same gradient as building it in the
+    backward."""
+    feat, order, lists, counts, origins = (_t(x) for x in random_tiles(2))
+    wc = _t(_cotangents(2, lists.shape[0])[0])
+    index = tblend.row_index(lists, counts, feat.shape[0] - 1)
+    grads = []
+    for ix in (None, index):
+        x = feat.clone().requires_grad_(True)
+        out = tblend.blend_tiles_fused(x, order, lists, counts, origins,
+                                       OPAQUE, T_THR, ix)
+        grads.append(torch.autograd.grad((out.color * wc).sum(), x)[0])
+    assert torch.equal(grads[0], grads[1])
+    assert grads[0].abs().max() > 0
