@@ -8,7 +8,8 @@ Phases (any failure exits non-zero, and nothing falls back to the CPU):
   2.  build kernels K1 (csrc/blend_fwd.cu) and K2 with its reduce
       (csrc/blend_bwd.cu; both include csrc/blend_common.cuh) from the
       sources, one nvcc each, started together, and print the seconds and
-      ptxas's registers and shared memory;
+      ptxas's registers and shared memory; build the pose backend
+      (csrc/pose_backend.cc) with g++;
   3a. hold K1's inference mode against its plain PyTorch twin on random
       tiles, some of whose counts sit at the walks' trim edges (0, 1,
       chunk - 1, chunk, chunk + 1, Kt);
@@ -49,8 +50,31 @@ Phases (any failure exits non-zero, and nothing falls back to the CPU):
       mapper, renders the last keyframe within 0.01 dB of the in-run eval;
       metric_torch writes a CSV row per frame and the mean; K1's residual
       mode, K2 and the reduce against their twins on the global call's own
-      launches, K2 with the reduce twice, bitwise equal.
-For every launch measured in 3b, 3e and 6b the script prints the live
+      launches, K2 with the reduce twice, bitwise equal;
+  7a. the TUM operating point (configs/tum_base.yaml's tracking and mapping
+      keys, tests/torch_parity.py::TUM_KEYS: the staged tracking path through
+      the native pose backend, loop detection, the depth filter, a gradient
+      pass every 4th frame): slam_torch.py + metric_torch.py on phase 6a's
+      room on disk against tests/data/entry_orb_170x300_jax_cpu.json; then
+      at TUM's 480x640, 12 frames out and 11 back with a check every frame:
+      ATE <= 1 cm, PSNR >= 27.5, overflow 0, a loop closed, the split of the
+      tracking time (ICP, backend, loop check), K1 and K2 on the run's own
+      launches against their twins;
+  7b. slam_mp_torch.py (tracker and mapper threads, each on its own CUDA
+      stream): at 170x300 with strict sync every frame, twice (equal ATE,
+      PSNR and rows) and against tests/data/mp_170x300_jax_cpu.json; at
+      680x1200 on phase 6b's scene with the config's strict / 5 and then
+      free: ATE, PSNR, overflow as in 6b, mid-run checkpoints, the tracking,
+      mapping and wall time per frame against 6b's single-process run;
+  7c. frozen binning (optimize_compact off, optimize_freeze_binning on): one
+      local call over phase 5's final map and frame memory, its first K1
+      residual and K2 launches against their twins, the ms per iteration and
+      the loss of its first and last iteration.
+Phases 7b and 7c run before 7a.
+Each of phases 5, 6b, 7a, 7b and 7c resets the launch counts just before
+its runs and reads them just after, and fails if a kernel its path runs was
+not launched there.
+For every launch measured in 3b, 3e, 6b and 7a-7c the script prints the live
 (pixel, entry) pairs its inputs need and how many of them have a non-zero
 alpha, the least time the card could take for that work (the bound: FP32
 operations over 67 TFLOP/s or bytes over 3.35 TB/s, whichever is larger;
@@ -76,7 +100,19 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 REF_170 = os.path.join(REPO, "tests", "data", "slice_170x300_jax_cpu.json")
 REF_OPT_170 = os.path.join(REPO, "tests", "data", "slice_opt_170x300_jax_cpu.json")
 REF_ENTRY_170 = os.path.join(REPO, "tests", "data", "entry_170x300_jax_cpu.json")
+REF_ORB_170 = os.path.join(REPO, "tests", "data", "entry_orb_170x300_jax_cpu.json")
+REF_MP_170 = os.path.join(REPO, "tests", "data", "mp_170x300_jax_cpu.json")
 ROOM_FULL_YAML = os.path.join(REPO, "configs", "synthetic", "room_full.yaml")
+# phase 7a at TUM's sensor size: 12 frames out and 11 back, the revisit of
+# tests/test_loop_closure.py::_loop_sequence, checked for loops every frame;
+# the in-memory frames carry TUM's depth factor (5000 per metre), which the
+# pose backend's 16-bit depth needs (at a factor of 1 it would see whole
+# metres)
+TUM_H, TUM_W, LOOP_OUT = 480, 640, 12
+TUM_DEPTH_SCALE = 5000.0
+LOOP_KEYS = {"loop_check_every": 1, "loop_min_gap": 10}
+KERNELS = ("blend_fwd", "blend_fwd_residual", "blend_fwd_transmission",
+           "blend_bwd", "blend_bwd_reduce")
 # phase 6b's child of room_full.yaml (30 iterations on frames 0, 5, 11): the
 # keyframe thresholds of the 170x300 reference make every optimization
 # frame a keyframe, and a gaussian optimized in both calls before frame 11
@@ -121,6 +157,15 @@ OPT_REF_TOL = {"ate_cm": 0.05, "psnr": 0.3, "depth_l1_cm": 0.1,
 # order and the run repeats bit for bit, so what is left is one fixed gap;
 # the metric CSV's mean PSNR over all 12 frames is held to OPT_REF_TOL's 0.3
 ENTRY_REF_TOL = dict(OPT_REF_TOL, final_psnr=0.8)
+# phase 7a at 170x300 (the TUM keys: depth filter, confidence 0.5, a gradient
+# pass every 4th frame, poses refined by the pose backend): ENTRY_REF_TOL,
+# except the final keyframe's PSNR.  Four runs of the port sit 0.89-1.04 dB
+# below the JAX reference's 30.807 (an H100: 29.873; the CPU at 1, 3 and 6
+# threads, tests/torch_parity.py --port --entry --orb: 29.912, 29.886,
+# 29.767) while their poses agree within 2.6e-4 and the metric CSV's mean
+# PSNR over all 12 frames within 0.26 dB (held to OPT_REF_TOL's 0.3)
+# (ROADMAP.md, Faults)
+ORB_REF_TOL = dict(ENTRY_REF_TOL, final_psnr=1.2)
 BENCH_ATE_CM, BENCH_PSNR = 1.0, 27.5
 # FP32 operations, counted from the sources (a fused multiply-add counts 2,
 # expf 1) and charged only where the function needs them.  Every live
@@ -548,12 +593,13 @@ def check_slice(res, label):
     track = sorted(res["track_ms"][1:])[len(res["track_ms"][1:]) // 2]
     plain = sorted(m for i, m in enumerate(res["map_ms"]) if i > 0 and i not in opt)
     mapping = plain[len(plain) // 2]
-    print(f"[{label}] ATE {res['ate_cm']:.4f} cm  PSNR {ev['psnr']:.3f}  "
-          f"depth L1 {ev['depth_l1_cm']:.4f} cm  gaussians "
+    last = len(res["track_ms"]) - 1
+    print(f"[{label}] ATE {res['ate_cm']:.6f} cm  PSNR {ev['psnr']:.6f}  "
+          f"depth L1 {ev['depth_l1_cm']:.6f} cm  gaussians "
           f"{res['n_stable'] + res['n_unstable']}  overflow "
           f"{res['max_overflow']}  median tracking {track:.2f} ms (frames "
-          f"1..{FRAMES - 1}), median mapping {mapping:.2f} ms (frames 1.."
-          f"{FRAMES - 1} without a gradient pass)")
+          f"1..{last}), median mapping {mapping:.2f} ms (frames 1..{last} "
+          f"without a gradient pass)")
     if opt:
         each = ", ".join(f"frame {i} {res['map_ms'][i]:.1f}" for i in sorted(opt))
         print(f"[{label}] mapping ms of the gradient-pass frames: {each}; "
@@ -823,6 +869,282 @@ def phase_6b(work, cams, dev, smi):
     return launches6, works
 
 
+def require_launches(label, launches, kernels=KERNELS, need=1):
+    for name in kernels:
+        if launches[name] < need:
+            fail(f"{label}: {name} launched {launches[name]} times, needs {need}")
+
+
+def counted(fn):
+    """(fn's result, the launch counts of fn alone)."""
+    from rtgslam_torch.ops.rasterize import blend
+
+    blend.reset_launches()
+    out = fn()
+    return out, dict(blend.launches)
+
+
+def add_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in KERNELS}
+
+
+def time_methods(targets):
+    """Patch each ``(owner, name)`` method with a host-clock timer (every
+    method here ends in a device-to-host fetch or is host code).  Returns
+    ({name: [seconds per call]}, restore)."""
+    spent, saved = {}, []
+    for owner, name in targets:
+        fn = getattr(owner, name)
+        saved.append((owner, name, fn))
+        spent[name] = []
+
+        def timed(*a, _fn=fn, _s=spent[name], **k):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                _s.append(time.perf_counter() - t0)
+        setattr(owner, name, timed)
+
+    def restore():
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    return spent, restore
+
+
+def loop_sequence(cams):
+    """Out and back: the tail returns through the earlier viewpoints
+    (tests/test_loop_closure.py::_loop_sequence), at TUM's depth factor."""
+    out = []
+    for i, cam in enumerate(list(cams) + list(cams[-2::-1])):
+        c = copy.copy(cam)
+        c.uid, c.timestamp, c.depth_scale = i, i / 30.0, TUM_DEPTH_SCALE
+        out.append(c)
+    return out
+
+
+def phase_7a(work, dev, smi):
+    """The TUM operating point: the entry points at 170x300 against the
+    JAX reference, then the 480x640 out-and-back run.  Returns (launch
+    counts, check_launch's result on the run's local optimize launch)."""
+    import torch_parity
+    from rtgslam_torch.data.synthetic import make_cameras
+    from rtgslam_torch.models import optimize
+    from rtgslam_torch.ops.icp import IcpTracker
+    from rtgslam_torch.ops.rasterize import blend
+    from rtgslam_torch.slam.loop_closure import LoopCloser
+    from rtgslam_torch.slam.run import make_args, run_sequence
+    from rtgslam_torch.slam.tracker import Tracker
+    from rtgslam_torch.utils import threefry
+
+    t0 = time.perf_counter()
+    with open(REF_ORB_170) as f:
+        oref = json.load(f)
+    save = os.path.join(work, "out_orb170")
+    cfg = torch_parity.write_child_config(
+        os.path.join(work, "orb170.yaml"), torch_parity.ROOM_YAML,
+        os.path.join(work, "scene170"), save, oref["overrides"])
+    (res, _), la = counted(lambda: run_entry_points(cfg, threefry.jax_priorities()))
+    require_launches("phase 7a 170x300", la)
+    if res["mapper"].max_overflow != oref["max_overflow"]:
+        fail(f"phase 7a: overflow {res['mapper'].max_overflow}")
+    check_entry(torch_parity.summarize_run(save), oref, ORB_REF_TOL,
+                "phase 7a 170x300")
+    print(f"[phase 7a] 170x300: tracker {dict(res['tracker'].status)}, "
+          f"launches {la}; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cams = loop_sequence(make_cameras(LOOP_OUT, TUM_H, TUM_W))
+    print(f"[phase 7a] {len(cams)} cameras at {TUM_H}x{TUM_W} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    args = make_args(TUM_H, TUM_W)
+    for k, v in dict(torch_parity.TUM_KEYS, **LOOP_KEYS).items():
+        setattr(args, k, v)
+    spent, untime = time_methods([(IcpTracker, "predict_pose"),
+                                  (Tracker, "_refine_with_backend"),
+                                  (LoopCloser, "observe")])
+    captured, calls, restore = capture_optimize_launches(blend, optimize)
+    t0 = time.perf_counter()
+    try:
+        res, lb = counted(lambda: run_sequence(args, cams, dev))
+    finally:
+        restore()
+        untime()
+    run_s = time.perf_counter() - t0
+    status = dict(res["tracker"].status)
+    ev = res["eval"]
+    if res["max_overflow"] != 0:
+        fail(f"phase 7a: bin overflow {res['max_overflow']} at {TUM_H}x{TUM_W}")
+    if not res["ate_cm"] <= BENCH_ATE_CM:
+        fail(f"phase 7a: ATE {res['ate_cm']:.4f} cm > {BENCH_ATE_CM} cm")
+    if not ev["psnr"] >= BENCH_PSNR:
+        fail(f"phase 7a: PSNR {ev['psnr']:.3f} < {BENCH_PSNR}")
+    if status.get("loops_closed", 0) < 1:
+        fail(f"phase 7a: no loop closed (tracker {status})")
+    iters = sum(n for _, n, _ in calls)
+    require_launches(f"phase 7a {TUM_H}x{TUM_W}", lb)
+    require_launches(f"phase 7a {TUM_H}x{TUM_W}", lb, KERNELS[1:2] + KERNELS[3:],
+                     iters)
+    track, mapping = check_slice(res, f"phase 7a {TUM_H}x{TUM_W}")
+    split = {k: median(v) * 1e3 for k, v in spent.items()}
+    print(f"[phase 7a] {TUM_H}x{TUM_W}, {len(cams)} frames: tracker {status}; "
+          f"median tracking {track:.2f} ms = ICP solve {split['predict_pose']:.2f}"
+          f" + backend {split['_refine_with_backend']:.2f} + loop check "
+          f"{split['observe']:.2f} (slowest {max(spent['observe']) * 1e3:.2f}) "
+          f"+ the rest; median mapping {mapping:.2f} ms; launches {lb} for "
+          f"{iters} gradient iterations; run {run_s:.1f} s ({smi})")
+    if set(captured.get("local", {})) != {"fwd", "bwd"}:
+        fail("phase 7a made no local optimize launch of K1 and K2")
+    works = check_launch(f"phase 7a {TUM_H}x{TUM_W} local optimize launch",
+                         captured["local"]["fwd"], captured["local"]["bwd"], smi)
+    return add_counts(la, lb), works
+
+
+def phase_7b(work, dev, smi):
+    """slam_mp_torch.py at 170x300 (strict every frame, twice, against the
+    JAX reference) and at 680x1200 on phase 6b's scene (strict / 5, free).
+    Returns the launch counts of the five runs."""
+    import metric_torch
+    import slam_mp_torch
+    import torch_parity
+    from rtgslam_torch.config import DatasetParams, read_config
+    from rtgslam_torch.data.camera import load_camera
+    from rtgslam_torch.data.dataset import Dataset
+    from rtgslam_torch.slam.eval import eval_frame
+    from rtgslam_torch.utils import threefry
+
+    os.chdir(REPO)
+    with open(REF_MP_170) as f:
+        mref = json.load(f)
+    counts, summaries = [], []
+    for rep in range(2):
+        t0 = time.perf_counter()
+        save = os.path.join(work, f"out_mp170_{rep}")
+        cfg = torch_parity.write_child_config(
+            os.path.join(work, f"mp170_{rep}.yaml"), torch_parity.ROOM_YAML,
+            os.path.join(work, "scene170"), save, mref["overrides"])
+        res, lc = counted(lambda: slam_mp_torch.main(
+            ["--config", cfg], priority_source=threefry.jax_priorities()))
+        require_launches(f"phase 7b 170x300 run {rep}", lc)
+        if res["mapper"].max_overflow != 0:
+            fail(f"phase 7b: overflow {res['mapper'].max_overflow}")
+        metric_torch.main(["--config", cfg])
+        got = torch_parity.summarize_run(save)
+        counts.append(lc)
+        summaries.append(got)
+        print(f"[phase 7b] 170x300 strict/1 run {rep}: ATE {got['ate_cm']:.6f} cm, "
+              f"PSNR {got['psnr']:.6f}, depth L1 {got['depth_l1_cm']:.6f} cm; "
+              f"{time.perf_counter() - t0:.1f} s")
+    a, b = summaries
+    for k in ("ate_cm", "psnr", "depth_l1_cm", "checkpoint_rows", "csv_mean"):
+        if a[k] != b[k]:
+            fail(f"phase 7b: two strict/1 runs differ in {k}: {a[k]} vs {b[k]}")
+    check_entry(a, mref, ENTRY_REF_TOL, "phase 7b 170x300 strict/1")
+
+    scene = os.path.join(work, "scene_full")
+    with open(os.path.join(work, "out_full", "performance.json")) as f:
+        single = json.load(f)["samples"]
+    n = len(single["tracking"])
+    single_ms = sum(single["tracking"][1:] + single["mapping"][1:]) * 1e3 / (n - 1)
+    for sync in ("strict", "free"):
+        t0 = time.perf_counter()
+        save = os.path.join(work, f"out_mp_full_{sync}")
+        cfg = torch_parity.write_child_config(
+            os.path.join(work, f"mp_full_{sync}.yaml"), ROOM_FULL_YAML, scene,
+            save, dict(FULL_OVERRIDES, sync_tracker2mapper_method=sync))
+        res, lc = counted(lambda: slam_mp_torch.main(["--config", cfg]))
+        counts.append(lc)
+        require_launches(f"phase 7b 680x1200 {sync}", lc)
+        mapper = res["mapper"]
+        args = read_config(cfg)
+        dparams = DatasetParams().extract(args)
+        infos = Dataset(dparams).scene_info.train_cameras
+        kf = mapper.keyframe_list[-1]["frame"]
+        frame = load_camera(dparams, kf.uid, infos[kf.uid])
+        frame.update(kf.R, kf.T)
+        ev = eval_frame(mapper, frame)
+        if mapper.max_overflow != 0 or ev["bin_overflow"] != 0:
+            fail(f"phase 7b {sync}: bin overflow {mapper.max_overflow}")
+        if not res["ate_cm"] <= BENCH_ATE_CM:
+            fail(f"phase 7b {sync}: ATE {res['ate_cm']:.4f} cm > {BENCH_ATE_CM} cm")
+        if not ev["psnr"] >= BENCH_PSNR:
+            fail(f"phase 7b {sync}: PSNR {ev['psnr']:.3f} < {BENCH_PSNR}")
+        dirs = set(os.listdir(os.path.join(save, "save_model")))
+        mid = {f"frame_{t:04d}" for t in range(len(infos))
+               if (t + 1) % int(args.save_step) == 0 or t == 0}
+        if not mid <= dirs:
+            fail(f"phase 7b {sync}: mid-run checkpoints {sorted(mid - dirs)} missing")
+        samples = res["recorder"].samples
+        ends = res["map_end"]
+        wall_ms = (ends[max(ends)] - ends[0]) * 1e3 / (len(ends) - 1)
+        policy = (sync if sync == "free"
+                  else f"{sync}/{args.sync_tracker2mapper_frames}")
+        print(f"[phase 7b] 680x1200 {policy}: "
+              f"ATE {res['ate_cm']:.4f} cm, keyframe {kf.uid} PSNR "
+              f"{ev['psnr']:.3f}, overflow 0, checkpoints {sorted(dirs)}; median "
+              f"tracking {median(samples['tracking'][1:]) * 1e3:.2f} ms, "
+              f"mapping {median(samples['mapping'][1:]) * 1e3:.2f} ms per frame "
+              f"(each thread's clock after its own stream's synchronize); wall "
+              f"{wall_ms:.2f} ms per frame (frames 1..{len(ends) - 1}, between "
+              f"mapping ends) against phase 6b's single-process tracking + "
+              f"mapping {single_ms:.2f} ms per frame; launches {lc}; "
+              f"{time.perf_counter() - t0:.1f} s ({smi})")
+    return add_counts(*counts)
+
+
+def phase_7c(mapper, args, smi):
+    """One local call with frozen binning (optimize_compact off,
+    optimize_freeze_binning on) over phase 5's final map and frame memory.
+    The final pass fixed every gaussian, so the map is returned to the
+    unstable pool first: the local call's render pool and update pool are
+    then the whole map.  Returns (launch counts, check_launch's result)."""
+    from rtgslam_torch.config import OptimizationParams
+    from rtgslam_torch.models import optimize
+    from rtgslam_torch.models.gaussian_map import UNSTABLE, alive_mask
+    from rtgslam_torch.ops.rasterize import blend
+
+    t0 = time.perf_counter()
+    state = mapper.state
+    state.status[alive_mask(state)] = UNSTABLE
+    mapper.optimize_compact, mapper.freeze_binning = False, True
+    losses, loss_fn = [], optimize._loss_fn
+
+    def recording(*a, **k):
+        loss, report = loss_fn(*a, **k)
+        losses.append(report["total"].detach())
+        return loss, report
+
+    optimize._loss_fn = recording
+    captured, calls, restore = capture_optimize_launches(blend, optimize)
+    try:
+        frame = mapper.processed_frames[-1]["camera"]
+        _, lc = counted(lambda: mapper.local_optimize(
+            frame, OptimizationParams().extract(args)))
+    finally:
+        restore()
+        optimize._loss_fn = loss_fn
+    if len(calls) != 1 or set(captured.get("final", {})) != {"fwd", "bwd"}:
+        fail(f"phase 7c: no frozen-binning optimize call (calls {calls})")
+    (_, n_iters, s), = calls
+    require_launches("phase 7c", lc, KERNELS[1:2] + KERNELS[3:], n_iters)
+    require_launches("phase 7c", lc, KERNELS[2:3])
+    # iterations past the middle all take the newest frame (mapper.py:605)
+    late = n_iters // 2 + 1
+    loss = [float(x) for x in losses]
+    if len(loss) != n_iters or not all(math.isfinite(x) for x in loss):
+        fail(f"phase 7c: losses {loss}")
+    print(f"[phase 7c] frozen-binning local call over {mapper.get_unstable_num} "
+          f"gaussians and {len(mapper.processed_frames)} frames: {n_iters} "
+          f"iterations, {s * 1e3 / n_iters:.2f} ms per iteration (masks and "
+          f"the one binning pass included), loss {loss[0]:.6f} at the first "
+          f"iteration; on the newest frame {loss[late]:.6f} at iteration "
+          f"{late} -> {loss[-1]:.6f} at the last; launches {lc} ({smi})")
+    works = check_launch("phase 7c frozen-binning launch",
+                         captured["final"]["fwd"], captured["final"]["bwd"], smi)
+    print(f"[phase 7c] {time.perf_counter() - t0:.1f} s")
+    return lc, works
+
+
 def main():
     import torch
 
@@ -857,6 +1179,9 @@ def main():
         info = cuda_build.build_info[name]
         print(f"[phase 2] built {name} in {info['seconds']:.2f} s")
         print(info["ptxas"].strip())
+    cuda_build.build_host("pose_backend")
+    print(f"[phase 2] built the pose backend (g++) in "
+          f"{cuda_build.build_info['pose_backend']['seconds']:.2f} s")
     print(f"[phase 2] {time.perf_counter() - t0:.2f} s")
 
     # ---- phase 3a: K1 inference vs plain on random tiles ---------------------
@@ -1001,13 +1326,18 @@ def main():
                                    smi)
     print(f"[phase 3b/3e] {time.perf_counter() - t0:.1f} s")
 
+    by_phase = {"5": launches}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         phase_6a(work)
-        _, works["global"] = phase_6b(work, cams, dev, smi)
+        by_phase["6b"], works["global"] = phase_6b(work, cams, dev, smi)
+        by_phase["7b"] = phase_7b(work, dev, smi)
+        by_phase["7c"], works["frozen"] = phase_7c(mapper, args, smi)
+        by_phase["7a"], works["tum"] = phase_7a(work, dev, smi)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # the kernels line gives the local calls' shape, where most gradient
-    # launches fall; max_abs_err is the largest of every phase
+    # launches fall; max_abs_err is the largest of every phase; launches
+    # are phase 5's, launches_by_phase those of each path's own run
     def err(part):
         return max(w[part]["err"] for w in works.values())
 
@@ -1017,7 +1347,8 @@ def main():
                 "launches": launches[name], "max_abs_err": max_abs_err,
                 "ms": w["ms"], "plain_ms": w["plain_ms"],
                 "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
-                "library_ms": w.get("library_ms"), "live_pairs": w["pairs"]}
+                "library_ms": w.get("library_ms"), "live_pairs": w["pairs"],
+                "launches_by_phase": {k: c[name] for k, c in by_phase.items()}}
 
     src = "rtgslam_torch/csrc/"
     loc = works["local"]

@@ -24,7 +24,9 @@ Two formulations, as in the JAX package:
     loop over the optimized pool's rows and the live tiles only — the
     depth order and tile lists stay frozen for the call;
   * :func:`optimize_chain` -> :func:`run_optimize`: every iteration projects,
-    sorts and bins the whole map again (the final global pass).
+    sorts and bins the whole map again (the final global pass), or, with
+    ``optimize_freeze_binning``, projects every iteration over a depth
+    order and tile lists frozen once per call (``render_fixed_binning``).
 
 The JAX package buckets the compact sizes to powers of two for its static
 shapes; here the pool and tile counts are used as they are, and the list
@@ -42,7 +44,8 @@ import torch
 from ..ops import preprocess
 from ..ops.rasterize import binning
 from ..ops.rasterize.api import (RasterSettings, render, render_compact,
-                                 render_transmission, transmission_rows)
+                                 render_fixed_binning, render_transmission,
+                                 transmission_rows)
 from ..ops.rasterize.blend import CHUNK, RowIndex, blend_transmission, row_index
 from ..ops.rasterize.project import project_geometry
 from ..ops.segment import stable_partition_order
@@ -138,8 +141,10 @@ def _total(out, frame, params, update_mask, hyper):
 
 
 def _loss_fn(params, aux, frame, settings: RasterSettings, hyper):
-    """Loss of a full render of the pool ``aux["render_alive"]`` (``_loss_fn``
-    :104): projection, depth sort and binning run again every call."""
+    """Loss of a render of the pool ``aux["render_alive"]`` (``_loss_fn``
+    :104): projection, depth sort and binning run again every call, unless
+    the frame carries frozen bins (``bin_order``, ``bin_tile_lists``,
+    ``bin_tile_counts``: :func:`render_fixed_binning`, :115-121)."""
     gauss = {
         "xyz": params["xyz"],
         "scales": activated_scales(params["scaling"]),
@@ -149,8 +154,13 @@ def _loss_fn(params, aux, frame, settings: RasterSettings, hyper):
         "normal": derived_normal(params["scaling"], params["rotation"]),
         "alive": aux["render_alive"],
     }
-    out = render(gauss, frame, settings, tile_mask=frame["tile_mask"],
-                 differentiable=True)
+    if "bin_order" in frame:
+        out = render_fixed_binning(gauss, frame["bin_order"],
+                                   frame["bin_tile_lists"],
+                                   frame["bin_tile_counts"], frame, settings)
+    else:
+        out = render(gauss, frame, settings, tile_mask=frame["tile_mask"],
+                     differentiable=True)
     return _total(out, frame, params, aux["update_mask"], hyper)
 
 
@@ -236,8 +246,10 @@ def run_optimize(state: MapState, frames: Dict[str, torch.Tensor],
                  lrs, hyper, settings: RasterSettings):
     """The loop over full renders (``run_optimize`` :197).  ``frames``
     holds stacked color, depth, normal, w2c, K, campos, render_mask and
-    tile_mask [F, ...]; ``frame_seq`` the frame of every iteration.
-    Updates ``state``'s parameters and confidence; returns the report."""
+    tile_mask [F, ...], and with frozen binning bin_order [F, V],
+    bin_tile_lists [F, T, Kt] and bin_tile_counts [F, T] (the JAX
+    ``frozen_bins``); ``frame_seq`` the frame of every iteration.  Updates
+    ``state``'s parameters and confidence; returns the report."""
     aux = {"render_alive": render_alive, "update_mask": update_mask}
     params = {k: getattr(state, k) for k in PARAM_KEYS}
     params, confidence, report = _iterate(
@@ -464,15 +476,37 @@ def optimize_execute(state: MapState, colors, depths, normals, w2cs, Ks,
     return report
 
 
+@torch.no_grad()
+def _frozen_bins(state: MapState, render_alive, w2cs, Ks, tiles,
+                 settings: RasterSettings):
+    """One depth sort and binning per frame from the current parameters of
+    the pool ``render_alive``, under the frame's tile mask (``optimize_chain``
+    :641-665).  Returns stacked (order [F, V], tile_lists [F, T, Kt],
+    tile_counts [F, T])."""
+    H, W = settings.height, settings.width
+    gauss0 = render_inputs(state, render_alive)
+    bins = [binning.bin_gaussians(
+        project_geometry(gauss0["xyz"], gauss0["scales"], gauss0["rotations"],
+                         gauss0["alive"], w2cs[f], Ks[f], W, H,
+                         settings.scale_modifier),
+        H, W, settings.block_capacity, settings.tile_capacity,
+        settings.max_visible, tile_mask=tiles[f]) for f in range(w2cs.shape[0])]
+    return (torch.stack([b.order for b in bins]),
+            torch.stack([b.tile_lists for b in bins]),
+            torch.stack([b.tile_counts for b in bins]))
+
+
 def optimize_chain(state: MapState, colors, depths, normals, w2cs, Ks,
                    camposes, frame_seq: Sequence[int], n_iters: int, lrs,
                    weights, settings: RasterSettings, mode: str,
                    sample_ratio: float, mask_depth_positive: bool,
-                   max_weight: float):
+                   max_weight: float, freeze_binning: bool = False):
     """A whole local or global pass over full renders (``optimize_chain``
-    :588 with ``freeze_binning=False``): history snapshot, masks, the loop,
-    and in local mode the history merge.  Updates ``state``; returns the
-    last report."""
+    :588): history snapshot, masks, the loop, and in local mode the history
+    merge.  With ``freeze_binning`` each frame is depth-sorted and binned
+    once, from the call's initial parameters under its tile mask
+    (:641-665), and every iteration renders through those frozen bins.
+    Updates ``state``; returns the last report."""
     local = mode == "local"
     render_alive = alive_mask(state) if local else stable_mask(state)
     update_mask = unstable_mask(state) if local else stable_mask(state)
@@ -487,6 +521,10 @@ def optimize_chain(state: MapState, colors, depths, normals, w2cs, Ks,
     frames = {"color": colors, "depth": depths, "normal": normals,
               "w2c": w2cs, "K": Ks, "campos": camposes,
               "render_mask": rmasks, "tile_mask": tiles}
+    if freeze_binning:
+        frames.update(zip(("bin_order", "bin_tile_lists", "bin_tile_counts"),
+                          _frozen_bins(state, render_alive, w2cs, Ks, tiles,
+                                       settings)))
     report = run_optimize(state, frames, frame_seq, n_iters, render_alive,
                           update_mask, lrs, hyper, settings)
     if local:

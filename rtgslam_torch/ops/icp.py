@@ -156,7 +156,10 @@ def build_icp_pyramids(depth: torch.Tensor, K: torch.Tensor, levels: int):
 
 
 class IcpTracker:
-    """The ICP settings of the fused tracking path (``IcpTracker`` :226)."""
+    """Pyramid ICP front-end (``IcpTracker`` :226, reference icp.py:357-452):
+    the settings both tracking paths read, and the staged path's state —
+    the current and previous (or model) pyramids, the constant-velocity
+    prior and the failure gate of :meth:`predict_pose`."""
 
     def __init__(self, args):
         self.downscales = list(args.icp_downscales)
@@ -174,6 +177,100 @@ class IcpTracker:
         # constant-velocity prior: seed each solve with the last relative pose
         self.use_motion_model = str(getattr(
             args, "icp_initializer", "constant_velocity")) == "constant_velocity"
+        self.last_rel = np.eye(4, dtype=np.float32)
+        self.prior_valid = False
+        self.frame_count = 0
+
+        self.K = None
+        self.vertex_t0 = None
+        self.normal_t0 = None
+        self.vertex_t1 = None
+        self.normal_t1 = None
+        self.depth_t1 = None
+        self.last_model_depth = None
+
+    # -- per-frame state (the staged tracking path) -------------------------
+    def update_curr_status(self, depth_t1: torch.Tensor, K: torch.Tensor) -> None:
+        """The current frame's depth and pyramids (``update_curr_status``
+        :265)."""
+        if self.K is None:
+            self.K = K.to(torch.float32)
+        self.depth_t1 = depth_t1
+        self.vertex_t1, self.normal_t1 = build_icp_pyramids(
+            depth_t1, self.K, self.levels)
+
+    def move_last_status(self) -> None:
+        """The current frame becomes the next solve's target (:272)."""
+        self.vertex_t0 = self.vertex_t1
+        self.normal_t0 = self.normal_t1
+        self.last_model_depth = self.depth_t1
+
+    def update_last_status(self, render_depth, frame_depth, render_normal,
+                           frame_normal) -> None:
+        """Fuse the rendered model depth with the sensor depth for the next
+        frame's target pyramid (:277, reference icp.py:397-415)."""
+        self.last_model_depth = fuse_model_depth(
+            render_depth, frame_depth, render_normal, frame_normal,
+            self.sample_distance_threshold, self.sample_normal_threshold)
+
+    # -- pose estimation ----------------------------------------------------
+    def predict_pose(self):
+        """The relative pose T_{t0<-t1} and a success flag (``predict_pose``
+        :285).  One device-to-host fetch (pose and residual) per solve; the
+        failure gate decides on the host:
+
+        * no trusted prior yet (first solve) -> accept and seed the prior;
+        * a failed residual test while the solve stayed near the
+          constant-velocity prediction -> accept (the unmasked residual
+          inflates at depth edges);
+        * a failed test with a solve that jumped away from the prediction ->
+          a HARD failure: return the prediction and False, so the caller can
+          relocalize or fall back to feature tracking."""
+        if self.vertex_t0 is None:
+            return np.eye(4), True
+        self.frame_count += 1
+        if (self.use_model_depth and self.last_model_depth is not None
+                and self.frame_count >= self.warmup_frames):
+            self.vertex_t0, self.normal_t0 = build_icp_pyramids(
+                self.last_model_depth, self.K, self.levels)
+        dev = self.K.device
+        pose10 = torch.as_tensor(
+            self.last_rel if self.use_motion_model
+            else np.eye(4, dtype=np.float32), device=dev)
+        pose10, p2p = icp_solve_all_levels(
+            pose10, self.vertex_t1, self.vertex_t0, self.normal_t1,
+            self.normal_t0, self.K, [float(s) for s in self.downscales],
+            self.iters, self.damping, self.distance_threshold,
+            self.normal_threshold, self.association)
+        host = torch.cat([pose10.reshape(-1), p2p.reshape(1)]).cpu().numpy()
+        pose_np = host[:16].reshape(4, 4).astype(np.float32)
+        success = bool(host[16] <= self.fail_threshold)
+        if not success and self.use_motion_model:
+            if not self.prior_valid:
+                self.last_rel = pose_np
+                self.prior_valid = True
+                return pose_np, True
+            delta = np.linalg.norm(pose_np[:3, 3] - self.last_rel[:3, 3])
+            cosang = np.clip(
+                (np.trace(pose_np[:3, :3].T @ self.last_rel[:3, :3]) - 1) / 2,
+                -1, 1)
+            ang = np.degrees(np.arccos(cosang))
+            if delta > 0.01 or ang > 1.0:
+                return np.asarray(self.last_rel), False
+            self.last_rel = pose_np
+            return pose_np, True
+        if success:
+            self.last_rel = pose_np
+            self.prior_valid = True
+        else:
+            self.last_rel = np.eye(4, dtype=np.float32)
+        return pose_np, success
+
+    def reset_prior(self, rel: np.ndarray) -> None:
+        """Re-seed the constant-velocity prior after an external pose fix
+        (relocalization or a backend correction)."""
+        self.last_rel = np.asarray(rel, np.float32)
+        self.prior_valid = True
 
 
 def fuse_model_depth(render_depth, frame_depth, render_normal, frame_normal,

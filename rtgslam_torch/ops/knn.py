@@ -6,6 +6,7 @@ JAX formula ``|q|^2 + |r|^2 - 2 q.r`` clamped at 0, with invalid references
 at +inf (not ``torch.cdist``, whose algorithm switches with size), computed
 over blocks of query rows.  The k smallest are taken by k first-minimum
 passes, so equal distances go to the lowest reference index.
+:func:`knn_self` (:198) is the self-excluding variant.
 """
 
 from __future__ import annotations
@@ -42,3 +43,16 @@ def knn(query: torch.Tensor, ref: torch.Tensor, ref_valid: torch.Tensor,
             d2.scatter_(1, best, torch.inf)
     idx = torch.where(torch.isinf(dist2), -1, idx)
     return dist2, idx
+
+
+def knn_self(points: torch.Tensor, valid: torch.Tensor, k: int = 3):
+    """k nearest OTHER points of each point, the ``distCUDA2`` fork contract
+    (``knn_self`` :198): :func:`knn` of the set against itself with k + 1
+    neighbours, the first column (the point itself for a valid point, at
+    distance ~0) dropped.  Returns (the mean squared distance over the finite
+    neighbours, 0 when none, [N]; idx [N, k] int32, -1 where missing)."""
+    d2, idx = knn(points, points, valid, k=k + 1)
+    d2, idx = d2[:, 1:], idx[:, 1:]
+    finite = torch.where(torch.isinf(d2), 0.0, d2)
+    count = torch.clamp(torch.sum(~torch.isinf(d2), dim=1), min=1)
+    return torch.sum(finite, dim=1) / count, idx

@@ -150,6 +150,43 @@ def render(gaussians: Dict[str, torch.Tensor], camera: Dict[str, torch.Tensor],
                              settings.height, settings.width)
 
 
+def render_fixed_binning(gaussians: Dict[str, torch.Tensor],
+                         order: torch.Tensor, tile_lists: torch.Tensor,
+                         tile_counts: torch.Tensor,
+                         camera: Dict[str, torch.Tensor],
+                         settings: RasterSettings) -> Dict[str, torch.Tensor]:
+    """Differentiable render over a FROZEN depth order ``order`` [V] (sorted
+    position -> map slot) and tile lists [T, Kt] (sentinel V)
+    (``render_fixed_binning`` :426): ``optimize_freeze_binning``'s render.
+
+    Projection, shading and the blend (:class:`blend.BlendFunction`, K1 in
+    residual mode, K2 backward) run on the current parameters; the order and
+    the tile membership stay those of the call's initial parameters, so the
+    depth sort and the binning run once per call instead of once per
+    iteration.  A divergence from the reference, which re-sorts every
+    iteration; off by default.  Index maps hold map slots; the overflow is
+    the binning's, counted once per call, so this reports 0."""
+    H, W = settings.height, settings.width
+    geo = project_geometry(gaussians["xyz"], gaussians["scales"],
+                           gaussians["rotations"], gaussians["alive"],
+                           camera["w2c"], camera["K"], W, H,
+                           settings.scale_modifier)
+    o = order.long()
+    P = gaussians["xyz"].shape[0]
+    r, g, b, elig = shade_cols(
+        gaussians["xyz"][o], gaussians["shs"].reshape(P, -1)[o],
+        gaussians["normal"][o], camera["campos"], settings.sh_degree,
+        settings.normal_threshold)
+    feat = _feature_rows(geo, o, r, g, b, gaussians["opacity"], elig)
+    tiles = blend.blend_tiles_fused(
+        feat, order, tile_lists, tile_counts,
+        binning.tile_origins(H, W, feat.device), settings.opaque_threshold,
+        settings.T_threshold)
+    return _assemble_outputs(tiles, gaussians["normal"],
+                             torch.zeros((), dtype=torch.int32,
+                                         device=feat.device), H, W)
+
+
 def render_transmission(gaussians: Dict[str, torch.Tensor],
                         camera: Dict[str, torch.Tensor],
                         settings: RasterSettings) -> Dict[str, torch.Tensor]:

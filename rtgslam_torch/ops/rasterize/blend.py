@@ -34,6 +34,7 @@ opaque_threshold, and the index / weight of the largest-weight entry.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -51,6 +52,7 @@ NPIX = TILE * TILE
 launches = {"blend_fwd": 0, "blend_fwd_residual": 0,
             "blend_fwd_transmission": 0, "blend_bwd": 0,
             "blend_bwd_reduce": 0}
+_launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -142,11 +144,17 @@ def _kernel_lib(name: str = "blend_fwd") -> ctypes.CDLL:
 
 
 def _launch(fn, kernel: str, *args) -> None:
-    """Launch on the current stream; raise on a refused launch."""
+    """Launch on the current stream (the calling thread's); raise on a
+    refused launch."""
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
-    launches[kernel] += 1
+    _count(kernel)
+
+
+def _count(kernel: str) -> None:
+    with _launch_lock:   # the pipelined system's threads both count here
+        launches[kernel] += 1
 
 
 def _ptrs(*xs):

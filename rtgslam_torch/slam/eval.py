@@ -10,10 +10,9 @@ Port of ``rtgslam_tpu/slam/eval.py`` (reference ``SLAM/eval.py``):
 The pictures are PNG (``{name}_color.png``, ``{name}_depth.png``) where the
 JAX package writes JPEG: the port writes images with numpy alone.
 
-LPIPS needs pretrained AlexNet weights.  As in the JAX package, with
-``LPIPS_WEIGHTS`` unset the column is absent; the port has no LPIPS
-network yet (``models/lpips.py`` is a ROADMAP item), so with
-``LPIPS_WEIGHTS`` set it raises instead of leaving the column out.
+LPIPS needs pretrained AlexNet weights.  As in the JAX package, the one
+gate is ``models/lpips.py``: ``LPIPS_WEIGHTS`` naming an npz puts an
+``lpips`` value in every eval output; unset, the column is absent.
 """
 
 from __future__ import annotations
@@ -28,21 +27,11 @@ import torch
 
 from ..models import losses
 from ..models.gaussian_map import STABLE, to_numpy_dict
+from ..models.lpips import lpips
 from ..utils import image_io
 from ..utils.ply import read_mesh, read_ply
 
 _warned_lpips = [False]
-
-
-def _lpips_gate() -> None:
-    if os.environ.get("LPIPS_WEIGHTS"):
-        raise NotImplementedError(
-            "LPIPS_WEIGHTS is set, but models/lpips.py is not ported yet "
-            "(ROADMAP.md, Open items: lpips.py)")
-    if not _warned_lpips[0]:
-        _warned_lpips[0] = True
-        print("[eval] lpips: unavailable (no AlexNet weights shipped; the "
-              "column is left out)")
 
 
 def eval_picture(render_out: Dict, gt_color, gt_depth,
@@ -71,7 +60,13 @@ def eval_picture(render_out: Dict, gt_color, gt_depth,
         # capacities are undersized for this map/view
         "bin_overflow": int(render_out.get("overflow", 0)),
     }
-    _lpips_gate()
+    lp = lpips(img, gt_c)
+    if lp is not None:
+        metrics["lpips"] = lp
+    elif not _warned_lpips[0]:
+        _warned_lpips[0] = True
+        print("[eval] lpips: unavailable (no AlexNet weights shipped; set "
+              "LPIPS_WEIGHTS to an npz from scripts/export_lpips_weights.py)")
 
     if save_path:
         os.makedirs(save_path, exist_ok=True)

@@ -37,6 +37,7 @@ from ..models.gaussian_map import (STABLE, UNSTABLE, GaussianMapConfig,
                                    render_inputs, to_numpy_dict)
 from ..ops.rasterize import RasterSettings, render
 from ..utils import ply as ply_utils
+from ..utils.general import require_device
 from ..utils.geometry import rot_compare, trans_compare
 
 PrioritySource = Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]
@@ -58,16 +59,16 @@ def generator_priorities(device, seed: int = 2024) -> PrioritySource:
 
 
 class Mapper:
-    def __init__(self, args, device="cpu",
+    """The mapper on ``device`` (CUDA unless the caller asks for the CPU)."""
+
+    def __init__(self, args, device="cuda",
                  priority_source: Optional[PrioritySource] = None):
-        for name in ("optimize_freeze_binning", "multi_device"):
-            if bool(getattr(args, name, False)):
-                raise NotImplementedError(
-                    f"{name}=True is not ported (ROADMAP.md, Open items: "
-                    "render_fixed_binning / optimize_freeze_binning and the "
-                    "multi-chip mesh)")
+        if bool(getattr(args, "multi_device", False)):
+            raise NotImplementedError(
+                "multi_device=True is not ported: the JAX package's mesh "
+                "(parallel/) is under ROADMAP.md's \"Do not port\"")
         self.args = args
-        self.device = setup_device(device)
+        self.device = setup_device(require_device(device))
         self.config = GaussianMapConfig.from_args(args)
         self.state = MapState.create(self.config, self.device)
         self.priorities = priority_source or generator_priorities(self.device)
@@ -79,6 +80,8 @@ class Mapper:
         self.save_step = int(args.save_step)
         self.gaussian_update_iter = int(args.gaussian_update_iter)
         self.final_global_iter = int(args.final_global_iter)
+        self.freeze_binning = bool(getattr(args, "optimize_freeze_binning", False))
+        # the compact two-stage path supersedes freeze_binning when on
         self.optimize_compact = bool(getattr(args, "optimize_compact", False))
         self.gaussian_update_frame = int(args.gaussian_update_frame)
         self.memory_length = int(args.memory_length)
@@ -305,7 +308,8 @@ class Mapper:
         if not self.optimize_compact:
             return optimize.optimize_chain(
                 self.state, *stacked, seq, n_iters, lrs, weights,
-                self.settings, mode, sample_ratio, mdp, max_weight)
+                self.settings, mode, sample_ratio, mdp, max_weight,
+                self.freeze_binning)
         prep = optimize.optimize_prepare(self.state, *stacked, self.settings,
                                          mode, sample_ratio, mdp)
         Ac = max(prep.n_pool, 1)
@@ -385,7 +389,7 @@ class Mapper:
                     [make_entry(selected[int(kf_idx)])]),
                 np.zeros(n_iters, np.int64), n_iters, lrs, weights,
                 self.settings, "global", -1.0,
-                self.dataset_type == "Scannetpp", 0.0)
+                self.dataset_type == "Scannetpp", 0.0, self.freeze_binning)
         return report
 
     # ------------------------------------------------------------------

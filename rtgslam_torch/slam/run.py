@@ -17,11 +17,10 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from ..config import OptimizationParams, read_config
 from ..data.camera import Camera
-from ..utils.general import sync
+from ..utils.general import require_device, sync
 from .eval import eval_frame
 from .mapper import Mapper, PrioritySource
 from .tracker import Tracker
@@ -52,17 +51,18 @@ def make_args(H: int, W: int):
     return args
 
 
-def run_sequence(args, cams: List[Camera], device="cpu",
+def run_sequence(args, cams: List[Camera], device="cuda",
                  priority_source: Optional[PrioritySource] = None) -> Dict:
-    """Track and map ``cams`` in order, then finish the run.
+    """Track and map ``cams`` in order on ``device`` (CUDA unless the caller
+    asks for the CPU), then finish the run.
 
     Returns poses [N, 4, 4], ate_cm, the last keyframe's eval metrics
     (psnr, depth_l1_cm, ...), the final stable / unstable counts, the
     per-frame (unstable, stable) counts, max bin overflow, the per-frame
     tracking / mapping milliseconds (host clock around work that ends in a
     device synchronize), which frames ran a gradient pass, the final pass's
-    milliseconds and the mapper."""
-    device = torch.device(device)
+    milliseconds, the mapper and the tracker."""
+    device = require_device(device)
     opt = OptimizationParams().extract(args)
     tracker = Tracker(args, device)
     mapper = Mapper(args, device, priority_source)
@@ -109,4 +109,5 @@ def run_sequence(args, cams: List[Camera], device="cpu",
         "optimize_frames": mapper.optimize_frames_ids,
         "final_ms": final_ms,
         "mapper": mapper,
+        "tracker": tracker,
     }

@@ -4,7 +4,8 @@ Each ``rtgslam_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` at first use (never at import) into
 ``build/rtgslam_torch/`` at the repository root.  The library file name
 carries a hash of the source, of every ``csrc/*.cuh`` header and of the
-flags, so an edited kernel or header rebuilds.
+flags, so an edited kernel or header rebuilds.  ``build_host`` does the
+same with ``g++`` for the one host-only source, ``csrc/pose_backend.cc``.
 """
 
 from __future__ import annotations
@@ -87,3 +88,35 @@ def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     build(name)
     return _libs[name]
+
+
+# native/Makefile's flags for the pose backend
+GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
+
+
+def build_host(name: str) -> str:
+    """Compile ``csrc/<name>.cc`` (plain C++ with a C interface, no CUDA)
+    with ``g++`` into ``build/rtgslam_torch/lib<name>_<hash>.so`` unless that
+    file exists, the hash taken over the source and the flags; returns the
+    library's path.  A failed or impossible build raises."""
+    with _lock:
+        src = os.path.join(CSRC, name + ".cc")
+        h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+        path = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+        build_info[name] = {"seconds": 0.0, "ptxas": "", "path": path}
+        if not os.path.exists(path):
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: {src} cannot be built")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            t0 = time.perf_counter()
+            proc = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, src],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed on {src}:\n{proc.stderr}")
+            os.replace(tmp, path)
+            build_info[name]["seconds"] = time.perf_counter() - t0
+        return path

@@ -118,8 +118,49 @@ def test_eval_pcd_equals_jax(tmp_path, with_faces):
                                   jeval.sample_mesh_surface(verts, faces, 777, seed=3))
 
 
+def _seeded_lpips_npz(path, seed=0):
+    """LPIPS-alex weights made from a seed, in the exact npz layout of
+    ``scripts/export_lpips_weights.py`` (AlexNet's 5 feature convs, OIHW,
+    and the 5 non-negative linear heads)."""
+    rng = np.random.default_rng(seed)
+    shapes = [(64, 3, 11), (192, 64, 5), (384, 192, 3), (256, 384, 3),
+              (256, 256, 3)]
+    arrays = {}
+    for i, (o, c, k) in enumerate(shapes):
+        arrays[f"conv{i}_w"] = rng.normal(0, np.sqrt(2.0 / (c * k * k)),
+                                          (o, c, k, k)).astype(np.float32)
+        arrays[f"conv{i}_b"] = rng.normal(0, 0.05, o).astype(np.float32)
+        arrays[f"lin{i}"] = np.abs(rng.normal(0, 0.1, o)).astype(np.float32)
+    np.savez(path, **arrays)
+    return str(path)
+
+
 def test_lpips_weights_refused(mapped, monkeypatch):
+    """A weights path that names no file is refused as in the JAX package:
+    the column is left out (never NaN)."""
     _, cam, _, pm = mapped
     monkeypatch.setenv("LPIPS_WEIGHTS", "/nonexistent/alexnet.npz")
-    with pytest.raises(NotImplementedError, match="lpips"):
-        teval.eval_frame(pm, _port_frame(cam))
+    assert "lpips" not in teval.eval_frame(pm, _port_frame(cam))
+
+
+def test_lpips_matches_jax(mapped, tmp_path, monkeypatch):
+    """``models/lpips.py`` on seeded weights: the metric alone and in
+    ``eval_frame`` within 1e-5 relative of the JAX package's (float32 convs
+    summing in another order)."""
+    from rtgslam_tpu.models import lpips as jlpips
+    from rtgslam_torch.models import lpips as tlpips
+
+    _, cam, jm, pm = mapped
+    path = _seeded_lpips_npz(tmp_path / "lpips_seeded.npz")
+    # the JAX package caches the first weights it reads for the process
+    monkeypatch.setattr(jlpips, "_weights_cache", None)
+    rng = np.random.default_rng(2)
+    img = rng.uniform(0, 1, cam.image.shape).astype(np.float32)
+    want = jlpips.lpips(img, cam.image.astype(np.float32), path)
+    got = tlpips.lpips(torch.from_numpy(img), torch.from_numpy(cam.image), path)
+    assert want > 0 and abs(got - want) <= 1e-5 * want
+    assert tlpips.lpips(torch.from_numpy(img), torch.from_numpy(img), path) == 0.0
+    monkeypatch.setenv("LPIPS_WEIGHTS", path)
+    ref = jeval.eval_frame(jm, cam)
+    out = teval.eval_frame(pm, _port_frame(cam))
+    assert abs(out["lpips"] - ref["lpips"]) <= 1e-5 * ref["lpips"]

@@ -94,6 +94,34 @@ def test_knn_ties_duplicates_invalid(k, Q, R):
     assert np.all(i_t.numpy()[:, ref_i.shape[1]:] == -1)
 
 
+@pytest.mark.parametrize("case", ["ties", "duplicates", "invalid", "few"])
+def test_knn_self_matches_jax(case):
+    """``knn_self`` (:198): the self column dropped, the mean over the
+    finite neighbours; equal indices and means within 1e-5 of JAX's, on
+    points at exact tie distances (a unit grid), duplicated points, invalid
+    rows and fewer valid points than k + 1."""
+    rng = np.random.default_rng(len(case))
+    if case == "ties":
+        g = np.arange(4, dtype=np.float32)
+        pts = np.stack(np.meshgrid(g, g, g[:2], indexing="ij"), -1).reshape(-1, 3)
+    else:
+        pts = rng.uniform(0, 2, (150, 3)).astype(np.float32)
+    valid = np.ones(len(pts), bool)
+    if case == "duplicates":
+        pts[[7, 60, 61]] = pts[30]
+    elif case == "invalid":
+        valid[rng.choice(len(pts), 40, replace=False)] = False
+    elif case == "few":
+        valid[3:] = False
+    d_j, i_j = jknn.knn_self(jnp.asarray(pts), jnp.asarray(valid), k=3)
+    d_t, i_t = tknn.knn_self(_t(pts), _t(valid), k=3)
+    assert np.array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=1e-5, atol=1e-6)
+    assert np.all(np.isfinite(d_t.numpy()))
+    if case == "few":
+        assert np.all(i_t.numpy()[:3, 2] == -1)
+
+
 def test_knn_respects_validity():
     q = torch.tensor([[0.0, 0, 0]])
     r = torch.tensor([[0.1, 0, 0], [0.2, 0, 0], [5, 5, 5]])
@@ -282,16 +310,22 @@ def test_threefry_replays_jax_random():
         assert np.array_equal(pb.numpy(), np.asarray(jax.random.uniform(k2, (n,))))
 
 
-def test_mapper_refuses_gradient_iterations():
-    """Gradient iterations run; the one optimize variant not ported, the
-    frozen binning of ``optimize_freeze_binning`` without the compact path,
-    is refused with the ROADMAP item that holds it."""
+def test_mapper_refuses_gradient_iterations(monkeypatch):
+    """Gradient iterations and the frozen binning of
+    ``optimize_freeze_binning`` construct; the multi-chip mesh
+    (``multi_device``, ROADMAP "Do not port") is refused; the default device
+    is CUDA, which raises where there is none."""
     from rtgslam_torch.slam.mapper import Mapper
 
     args = read_config(os.path.join(REPO, "configs", "base.yaml"))
     args.map_capacity, args.temp_capacity = 1024, 256
     assert int(args.gaussian_update_iter) > 0 and int(args.final_global_iter) > 0
-    Mapper(args)
+    Mapper(args, "cpu")
     args.optimize_freeze_binning = True
-    with pytest.raises(NotImplementedError, match="optimize_freeze_binning"):
+    assert Mapper(args, "cpu").freeze_binning
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
         Mapper(args)
+    args.multi_device = True
+    with pytest.raises(NotImplementedError, match="multi_device"):
+        Mapper(args, "cpu")

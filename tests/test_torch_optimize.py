@@ -274,3 +274,79 @@ def test_optimize_chain_global_matches(problem):
     moved = np.abs(state.features_dc.numpy()
                    - np.asarray(jstate.features_dc)).sum(-1) > 0
     assert moved[:32].any() and not moved[32:].any()     # stable rows only
+
+
+@pytest.mark.parametrize("pool", ["alive", "stable"])
+def test_render_fixed_binning_matches(problem, pool):
+    """``render_fixed_binning`` (:426) over the same frozen order and tile
+    lists (the port's ``_frozen_bins``, under frame 0's tile mask): every
+    output within 1e-5, index maps equal; and the gradient of a color +
+    depth loss through it within the compact test's tolerances."""
+    from rtgslam_tpu.models.gaussian_map import (
+        alive_mask as jalive, render_inputs as jrender_inputs,
+        stable_mask as jstable)
+    from rtgslam_tpu.ops.rasterize.api import render_fixed_binning as jfixed
+    from rtgslam_torch.models.gaussian_map import (alive_mask, render_inputs,
+                                                   stable_mask)
+
+    jstate, arrays, jst, tst = problem
+    state = _port_state(jstate)
+    mask = (alive_mask if pool == "alive" else stable_mask)(state)
+    tiles = torch.ones((1, 2, 2), dtype=torch.int32)
+    order, lists, counts = (x[0] for x in topt._frozen_bins(
+        state, mask, torch.from_numpy(arrays["w2c"][:1].copy()),
+        torch.from_numpy(arrays["K"][:1].copy()), tiles, tst))
+    cam = {k: torch.from_numpy(arrays[k][0].copy()) for k in ("w2c", "K", "campos")}
+
+    gauss = render_inputs(state, mask)
+    leaves = {k: v.clone().requires_grad_(v.is_floating_point())
+              for k, v in gauss.items()}
+    out = tapi.render_fixed_binning(leaves, order, lists, counts, cam, tst)
+    color = torch.from_numpy(arrays["color"][0].copy())
+    loss = (out["render"] - color).abs().mean() + out["depth"].mean()
+    grads = torch.autograd.grad(loss, [leaves[k] for k in ("xyz", "opacity", "shs")])
+
+    jgauss = jrender_inputs(jstate, (jalive if pool == "alive" else jstable)(jstate))
+    args = tuple(jnp.asarray(x.numpy()) for x in (order, lists, counts))
+    jcam = tuple(jnp.asarray(arrays[k][0]) for k in ("w2c", "K", "campos"))
+    want = jfixed(jgauss, *args, *jcam, jst)
+
+    def jloss(floats):
+        o = jfixed.__wrapped__(dict(jgauss, **floats), *args, *jcam, jst)
+        return (jnp.abs(o["render"] - jnp.asarray(arrays["color"][0])).mean()
+                + o["depth"].mean())
+
+    jgrads = jax.grad(jloss)({k: jgauss[k] for k in ("xyz", "opacity", "shs")})
+    for k in ("render", "depth", "T_map", "normal", "color_hit_weight",
+              "depth_hit_weight"):
+        np.testing.assert_allclose(out[k].detach().numpy(), np.asarray(want[k]),
+                                   atol=1e-5, err_msg=k)
+    for k in ("color_index_map", "depth_index_map"):
+        assert np.array_equal(out[k].numpy(), np.asarray(want[k])), k
+    assert (out["depth_index_map"] >= 0).any()
+    for k, g in zip(("xyz", "opacity", "shs"), grads):
+        w = np.asarray(jgrads[k])
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max() + 1e-12, err_msg=k)
+        assert np.abs(w).max() > 0
+
+
+@pytest.mark.parametrize("mode,ratio", [("local", -1.0), ("global", 0.4)])
+def test_optimize_chain_freeze_binning_matches(problem, mode, ratio):
+    """``optimize_chain(freeze_binning=True)`` (:641-665): sorted and binned
+    once per frame, then 5 iterations through ``render_fixed_binning``;
+    parameters within 1e-5 of JAX's, confidences equal."""
+    jstate, arrays, jst, tst = problem
+    n_iters, seq = 5, np.array([0, 1, 1, 0, 1])
+    want_state, want_report = jopt.optimize_chain(
+        jstate, *_jframes(arrays), jnp.asarray(seq), n_iters,
+        {k: jnp.float32(v) for k, v in LRS.items()}, _jweights(_weights()), jst,
+        mode=mode, sample_ratio=ratio, mask_depth_positive=True,
+        max_weight=0.5, freeze_binning=True)
+    state = _port_state(jstate)
+    report = topt.optimize_chain(state, *_tframes(arrays), seq, n_iters, LRS,
+                                 _weights(), tst, mode, ratio, True, 0.5,
+                                 freeze_binning=True)
+    _compare_reports(report, want_report)
+    _compare_states(state, want_state)
+    assert (state.confidence.numpy() > np.asarray(jstate.confidence)).any()

@@ -124,9 +124,9 @@ def test_opt_slice_gaussian_counts_and_overflow(opt_runs):
 
 def test_port_runs_without_jax(tmp_path):
     """In a fresh interpreter where importing JAX or the JAX package fails,
-    the port's modules and both entry points import, the slice runs on the
-    CPU, and ``slam_torch.py`` / ``metric_torch.py`` run a 3-frame scene
-    written to disk."""
+    the port's modules and its three entry points import, the slice runs on
+    the CPU, and ``slam_torch.py`` / ``metric_torch.py`` / ``slam_mp_torch.py``
+    run a 3-frame scene written to disk."""
     code = textwrap.dedent("""
         import importlib, sys
         class Block:
@@ -136,12 +136,17 @@ def test_port_runs_without_jax(tmp_path):
         sys.meta_path.insert(0, Block())
         import torch
         torch.set_num_threads(1)
-        for m in ("slam_torch", "metric_torch", "rtgslam_torch.config",
+        for m in ("slam_torch", "metric_torch", "slam_mp_torch",
+                  "rtgslam_torch.config",
                   "rtgslam_torch.data.camera", "rtgslam_torch.data.dataset",
                   "rtgslam_torch.data.loader", "rtgslam_torch.data.synthetic",
                   "rtgslam_torch.models.densify", "rtgslam_torch.models.gaussian_map",
+                  "rtgslam_torch.models.lpips", "rtgslam_torch.ops.knn",
                   "rtgslam_torch.slam.eval", "rtgslam_torch.slam.mapper",
-                  "rtgslam_torch.slam.tracker", "rtgslam_torch.utils.general",
+                  "rtgslam_torch.slam.tracker", "rtgslam_torch.slam.pose_backend",
+                  "rtgslam_torch.slam.native_backend",
+                  "rtgslam_torch.slam.loop_closure", "rtgslam_torch.slam.system",
+                  "rtgslam_torch.utils.general",
                   "rtgslam_torch.utils.image_io", "rtgslam_torch.utils.monitor",
                   "rtgslam_torch.utils.ply", "rtgslam_torch.utils.traj"):
             importlib.import_module(m)
@@ -164,6 +169,12 @@ def test_port_runs_without_jax(tmp_path):
         assert out["final_eval"]["psnr"] > 15, out["final_eval"]
         met = metric_torch.main(["--config", tmp + "/c.yaml", "--device", "cpu"])
         assert len(met["rows"]) == 3 and met["mean"]["psnr"] > 15, met["mean"]
+        import slam_mp_torch
+        with open(tmp + "/mp.yaml", "w") as f:
+            f.write(f"parent: {tmp}/c.yaml\\nsave_path: {tmp}/out_mp\\n"
+                    "sync_tracker2mapper_frames: 1\\ntracker_max_fps: 1000\\n")
+        mp = slam_mp_torch.main(["--config", tmp + "/mp.yaml", "--device", "cpu"])
+        assert mp["ate_cm"] < 1.0 and mp["mapper"].get_stable_num > 0, mp
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "rtgslam_tpu", "flax")]
         assert not bad, bad

@@ -9,6 +9,7 @@ equations sum ~12k terms in another order).
 """
 
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +24,7 @@ from rtgslam_torch.slam import tracker as ttracker
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "tests"))
 ATOL = 1e-5
 
 
@@ -132,8 +134,20 @@ def test_icp_recovers_pose(synthetic_cams):
     assert ang < 0.2
 
 
-def test_tracker_refuses_unported_backends():
-    with pytest.raises(NotImplementedError):
-        ttracker.Tracker(_args(use_gt_pose=False, use_orb_backend=True))
-    with pytest.raises(NotImplementedError):
-        ttracker.Tracker(_args(use_gt_pose=False, loop_closure_pure_icp=True))
+def test_tracker_refuses_unported_backends(synthetic_cams, monkeypatch):
+    """Nothing is refused any more: the pose backend (the native one, built
+    from the port's own source) and the pure-ICP loop closure construct and
+    track; only a CUDA default with no card raises."""
+    import torch_parity as tp
+
+    for kw, fused in ((dict(use_orb_backend=True), False),
+                      (dict(loop_closure_pure_icp=True), True)):
+        tr = ttracker.Tracker(_args(use_gt_pose=False, **kw), "cpu")
+        assert tr.fused == fused and tr.loop_closer is not None
+        for i, cam in enumerate(tp.port_cameras(synthetic_cams[:3])):
+            tr.tracking(cam, tr.map_preprocess(cam, i))
+        assert len(tr.pose_es) == 3 and tr.eval_ate() < 1.0
+    assert len(tr.get_new_poses() or []) == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        ttracker.Tracker(_args(use_gt_pose=False))

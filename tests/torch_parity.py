@@ -19,6 +19,22 @@ repository root, summarized by :func:`summarize_run`:
 
     JAX_PLATFORMS=cpu python tests/torch_parity.py --entry --frames 6 --height 96 --width 128
     JAX_PLATFORMS=cpu python tests/torch_parity.py --entry --frames 12 --height 170 --width 300
+
+``--orb`` adds the TUM operating point's tracking and mapping keys
+(``TUM_KEYS``: the pose backend, the depth filter, an optimization pass
+every 4th frame) to that child config, so ``slam.py`` tracks through the
+native pose backend with loop detection on; ``--mp`` runs the pipelined
+``slam_mp.py`` (strict sync, one frame: deterministic) in place of
+``slam.py``:
+
+    JAX_PLATFORMS=cpu python tests/torch_parity.py --entry --orb --frames 12 --height 170 --width 300
+    JAX_PLATFORMS=cpu python tests/torch_parity.py --mp --frames 5 --height 96 --width 128
+    JAX_PLATFORMS=cpu python tests/torch_parity.py --mp --frames 12 --height 170 --width 300
+
+``--port`` runs the port's entry point on the CPU against the reference
+those flags name and prints the gaps (``--threads`` sets torch's threads):
+
+    python tests/torch_parity.py --port --entry --orb --height 170 --width 300 --threads 3
 """
 
 from __future__ import annotations
@@ -57,6 +73,29 @@ ENTRY_OVERRIDES = {
                     final_global_iter=2, save_step=3),
     (170, 300): dict(_KEYFRAMES, stable_confidence_thres=60, save_step=6),
 }
+# configs/tum_base.yaml's tracking and mapping keys: the staged tracking
+# path through the pose backend (loop detection on, as base.yaml has it)
+TUM_KEYS = dict(use_gt_pose=False, use_orb_backend=True, orb_useicp=True,
+                icp_use_model_depth=True, depth_filter=True,
+                gaussian_update_frame=4, icp_normal_threshold=20,
+                icp_sample_distance_threshold=0.01,
+                icp_sample_normal_threshold=0.01,
+                invalid_confidence_thresh=0.5)
+# the pipelined entry point: strict sync after every frame, the one policy
+# whose result does not depend on thread timing
+MP_KEYS = dict(sync_tracker2mapper_method="strict",
+               sync_tracker2mapper_frames=1, tracker_max_fps=1000)
+
+
+def entry_overrides(H: int, W: int, orb: bool = False, mp: bool = False) -> dict:
+    """The child config's overrides of an entry-point run at H x W."""
+    return dict(ENTRY_OVERRIDES[(H, W)], **(TUM_KEYS if orb else {}),
+                **(MP_KEYS if mp else {}))
+
+
+def reference_name(H: int, W: int, orb: bool = False, mp: bool = False) -> str:
+    kind = "mp" if mp else ("entry_orb" if orb else "entry")
+    return os.path.join(REPO, "tests", "data", f"{kind}_{H}x{W}_jax_cpu.json")
 # left out of the file-set comparisons: matplotlib's plots
 PLOTS = ("ate.png", "traj_xy.jpg")
 
@@ -338,19 +377,22 @@ def summarize_run(save_path: str) -> dict:
 def entry_main(a):
     """Write the entry-point reference of the JAX package (see the module
     docstring)."""
+    import time
+
     from rtgslam_tpu.data.synthetic import write_scene
 
-    overrides = ENTRY_OVERRIDES[(a.height, a.width)]
-    out_path = a.out or os.path.join(
-        REPO, "tests", "data", f"entry_{a.height}x{a.width}_jax_cpu.json")
+    overrides = entry_overrides(a.height, a.width, a.orb, a.mp)
+    out_path = a.out or reference_name(a.height, a.width, a.orb, a.mp)
+    slam_script = "slam_mp.py" if a.mp else "slam.py"
     env = dict(os.environ, JAX_PLATFORMS="cpu")
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         scene = write_scene(os.path.join(tmp, "scene"), a.frames, a.height, a.width)
         save = os.path.join(tmp, "out")
         cfg = write_child_config(os.path.join(tmp, "entry.yaml"), ROOM_YAML,
                                  scene, save, overrides)
         logs = {}
-        for script in ("slam.py", "metric.py"):
+        for script in (slam_script, "metric.py"):
             proc = subprocess.run(
                 [sys.executable, script, "--platform", "cpu", "--config", cfg],
                 cwd=REPO, env=env, capture_output=True, text=True)
@@ -359,25 +401,72 @@ def entry_main(a):
                 sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
                 raise SystemExit(f"{script} failed ({proc.returncode})")
         ref = summarize_run(save)
-    counts = re.search(r"stable num: (\d+), unstable num: (\d+)", logs["slam.py"])
-    overflow = re.search(r"max bin_overflow: (\d+)", logs["slam.py"])
+    # slam_mp.py prints neither line
+    counts = re.search(r"stable num: (\d+), unstable num: (\d+)", logs[slam_script])
+    overflow = re.search(r"max bin_overflow: (\d+)", logs[slam_script])
     import jax
 
+    flags = " ".join(f for f, on in (("--entry", not a.mp), ("--orb", a.orb),
+                                      ("--mp", a.mp)) if on)
     ref.update({
-        "command": ("JAX_PLATFORMS=cpu python tests/torch_parity.py --entry "
+        "command": (f"JAX_PLATFORMS=cpu python tests/torch_parity.py {flags} "
                     f"--frames {a.frames} --height {a.height} --width {a.width}"),
         "config": "configs/synthetic/room.yaml with overrides",
+        "entry_point": slam_script,
         "overrides": overrides,
         "frames": a.frames, "height": a.height, "width": a.width,
         "jax_version": jax.__version__,
-        "loop_end_counts": [int(counts.group(1)), int(counts.group(2))],
-        "max_overflow": int(overflow.group(1)),
+        "loop_end_counts": (counts and [int(counts.group(1)),
+                                        int(counts.group(2))]),
+        "max_overflow": overflow and int(overflow.group(1)),
+        "seconds": time.perf_counter() - t0,
     })
     with open(out_path, "w") as f:
         json.dump(ref, f, indent=1)
     print(json.dumps({k: ref[k] for k in ("ate_cm", "psnr", "depth_l1_cm",
                                           "loop_end_counts", "max_overflow",
                                           "csv_mean")}))
+
+
+def port_main(a):
+    """Run the port's entry point on the CPU against the reference the
+    other flags name (the same scene and child config, JAX's spawn
+    priorities) and print the gaps as one JSON line."""
+    import time
+
+    import torch
+
+    torch.set_num_threads(a.threads)
+    sys.path.insert(0, REPO)
+    import metric_torch
+    import slam_mp_torch
+    import slam_torch
+    from rtgslam_torch.data.synthetic import write_scene
+    from rtgslam_torch.utils.threefry import jax_priorities
+
+    path = a.out or reference_name(a.height, a.width, a.orb, a.mp)
+    with open(path) as f:
+        ref = json.load(f)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = write_scene(os.path.join(tmp, "scene"), ref["frames"],
+                            ref["height"], ref["width"])
+        cfg = write_child_config(os.path.join(tmp, "c.yaml"), ROOM_YAML, scene,
+                                 os.path.join(tmp, "out"), ref["overrides"])
+        os.chdir(REPO)
+        (slam_mp_torch if a.mp else slam_torch).main(
+            ["--config", cfg, "--device", "cpu"], priority_source=jax_priorities())
+        metric_torch.main(["--config", cfg, "--device", "cpu"])
+        got = summarize_run(os.path.join(tmp, "out"))
+    print(json.dumps({
+        "reference": os.path.basename(path), "threads": a.threads,
+        "seconds": time.perf_counter() - t0,
+        "pose_max_abs": float(np.abs(np.array(got["poses"])
+                                     - np.array(ref["poses"])).max()),
+        **{k: [got[k], ref[k]] for k in ("ate_cm", "psnr", "depth_l1_cm")},
+        "csv_mean_psnr": [got["csv_mean"]["psnr"], ref["csv_mean"]["psnr"]],
+        "rows_outside_2pct": rows_within(got["checkpoint_rows"],
+                                         ref["checkpoint_rows"], 0.02)}))
 
 
 def main():
@@ -389,14 +478,25 @@ def main():
                     help="keep bench.make_args' iteration counts")
     ap.add_argument("--entry", action="store_true",
                     help="reference of slam.py + metric.py on a scene on disk")
+    ap.add_argument("--orb", action="store_true",
+                    help="with --entry: the TUM tracking keys (TUM_KEYS)")
+    ap.add_argument("--mp", action="store_true",
+                    help="reference of slam_mp.py (strict, 1 frame) + metric.py")
+    ap.add_argument("--port", action="store_true",
+                    help="run the port on the CPU against that reference "
+                         "(read from --out when given) and print the gaps")
+    ap.add_argument("--threads", type=int, default=3,
+                    help="with --port: torch's CPU threads")
     ap.add_argument("--out", default=None)
     a = ap.parse_args()
+    if a.port:
+        return port_main(a)
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, REPO)
-    if a.entry:
+    if a.entry or a.mp:
         return entry_main(a)
     out_path = a.out or (REF_OPT_JSON if a.optimize else REF_JSON)
     import bench
