@@ -22,6 +22,8 @@ Phases (any failure exits non-zero, and nothing falls back to the CPU):
       frames against the JAX-on-CPU reference tests/data/slice_170x300_jax_cpu.json;
   4b. the loop with gradient optimization (bench.make_args unchanged) at
       170x300 x 12 frames against tests/data/slice_opt_170x300_jax_cpu.json;
+  4c. the same at 340x600 (configs/synthetic/room_mid.yaml's size) against
+      tests/data/slice_opt_340x600_jax_cpu.json, with 4b's tolerances;
   5.  the bench point with optimization at 680x1200 x 12 frames (map
       capacity 2^19) with the launch counts reset just before: overflow 0,
       finite metrics, ATE <= 1 cm, PSNR >= 27.5, K1 launched at least once
@@ -63,18 +65,30 @@ Phases (any failure exits non-zero, and nothing falls back to the CPU):
   7b. slam_mp_torch.py (tracker and mapper threads, each on its own CUDA
       stream): at 170x300 with strict sync every frame, twice (equal ATE,
       PSNR and rows) and against tests/data/mp_170x300_jax_cpu.json; at
-      680x1200 on phase 6b's scene with the config's strict / 5 and then
-      free: ATE, PSNR, overflow as in 6b, mid-run checkpoints, the tracking,
-      mapping and wall time per frame against 6b's single-process run;
+      680x1200 on phase 6b's scene cut to its first MP_FULL_FRAMES frames
+      with the config's strict / 5 and then free: ATE, PSNR, overflow as in
+      6b, mid-run checkpoints, the tracking, mapping and wall time per frame
+      against 6b's single-process run over the same frames;
   7c. frozen binning (optimize_compact off, optimize_freeze_binning on): one
       local call over phase 5's final map and frame memory, its first K1
       residual and K2 launches against their twins, the ms per iteration and
       the loss of its first and last iteration.
+  8.  bench_torch.py: as a subprocess at its default 170x300 x 40 with one
+      rep and RTG_PERF=1 (exit 0, bench.py's JSON keys less its TPU link's,
+      the gates PSNR >= 27.5, ATE <= 0.5 cm, overflow 0, the host spans in
+      detail.perf); then its reps in process on phase 5's 680x1200 frames
+      (warm-up 2, one rep) with the launch counts reset just before: K1 at
+      least once per render and per iteration, K2 and the reduce once per
+      iteration, the first local call's K1 residual and K2 launches against
+      their twins;
+  F3. accumulate_gaussian_error on the lifecycle's inputs for phase 5's
+      last frame over phase 8's map: two runs on the card bitwise equal,
+      the CPU's sums within SEGMENT_RTOL of the largest.
 Phases 7b and 7c run before 7a.
-Each of phases 5, 6b, 7a, 7b and 7c resets the launch counts just before
+Each of phases 5, 6b, 7a, 7b, 7c and 8 resets the launch counts just before
 its runs and reads them just after, and fails if a kernel its path runs was
 not launched there.
-For every launch measured in 3b, 3e, 6b and 7a-7c the script prints the live
+For every launch measured in 3b, 3e, 6b, 7a-7c and 8 the script prints the live
 (pixel, entry) pairs its inputs need and how many of them have a non-zero
 alpha, the least time the card could take for that work (the bound: FP32
 operations over 67 TFLOP/s or bytes over 3.35 TB/s, whichever is larger;
@@ -102,6 +116,24 @@ REF_OPT_170 = os.path.join(REPO, "tests", "data", "slice_opt_170x300_jax_cpu.jso
 REF_ENTRY_170 = os.path.join(REPO, "tests", "data", "entry_170x300_jax_cpu.json")
 REF_ORB_170 = os.path.join(REPO, "tests", "data", "entry_orb_170x300_jax_cpu.json")
 REF_MP_170 = os.path.join(REPO, "tests", "data", "mp_170x300_jax_cpu.json")
+REF_OPT_340 = os.path.join(REPO, "tests", "data", "slice_opt_340x600_jax_cpu.json")
+# phase 8: bench_torch.py's JSON line (bench.py's keys, less those of its
+# TPU link) and its spans under RTG_PERF=1
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+BENCH_DETAIL_KEYS = {
+    "H", "W", "frames", "reps", "rep_fps", "rep_median_mapping_ms",
+    "mean_tracking_ms", "mean_mapping_ms", "median_tracking_ms",
+    "median_mapping_ms", "fps_reference_mean_rule", "fps_median_rule",
+    "e2e_fps", "ate_cm", "psnr", "depth_l1_cm", "gaussians", "bin_overflow",
+    "perf"}
+BENCH_SPANS = {"track.upload", "track.dispatch", "track.pose_fetch",
+               "map.counter_fetch", "map.spawn_chain", "map.frame_chain",
+               "map.keyframe_offload", "map.local_optimize",
+               "map.lifecycle_chain"}
+BENCH_WARMUP_IN_PROCESS = 2
+# the F3 check: the card's per-gaussian error sums against the CPU's (another
+# summation order), relative to the largest total
+SEGMENT_RTOL = 1e-4
 ROOM_FULL_YAML = os.path.join(REPO, "configs", "synthetic", "room_full.yaml")
 # phase 7a at TUM's sensor size: 12 frames out and 11 back, the revisit of
 # tests/test_loop_closure.py::_loop_sequence, checked for loops every frame;
@@ -123,6 +155,9 @@ FULL_OVERRIDES = {"keyframe_trans_thes": 0.003, "keyframe_theta_thes": 0.25,
 # the reloaded final checkpoint against the in-run eval of the last keyframe
 RELOAD_PSNR_DB = 0.01
 FRAMES = 12
+# phase 7b's 680x1200 runs: frames 0-5 of the 6b scene (gradient passes on
+# 0 and 5), which keeps the whole script near 300 s
+MP_FULL_FRAMES = 6
 # K1 vs the plain twin: sequential vs log-space transmittance, rounding only
 BLEND_ATOL = 1e-5
 # index maps may differ only where the plain twin and K1 round a tie
@@ -1044,15 +1079,16 @@ def phase_7b(work, dev, smi):
     scene = os.path.join(work, "scene_full")
     with open(os.path.join(work, "out_full", "performance.json")) as f:
         single = json.load(f)["samples"]
-    n = len(single["tracking"])
-    single_ms = sum(single["tracking"][1:] + single["mapping"][1:]) * 1e3 / (n - 1)
+    n = MP_FULL_FRAMES
+    single_ms = sum(single["tracking"][1:n] + single["mapping"][1:n]) * 1e3 / (n - 1)
     for sync in ("strict", "free"):
         t0 = time.perf_counter()
         save = os.path.join(work, f"out_mp_full_{sync}")
         cfg = torch_parity.write_child_config(
             os.path.join(work, f"mp_full_{sync}.yaml"), ROOM_FULL_YAML, scene,
             save, dict(FULL_OVERRIDES, sync_tracker2mapper_method=sync))
-        res, lc = counted(lambda: slam_mp_torch.main(["--config", cfg]))
+        res, lc = counted(lambda: slam_mp_torch.main(
+            ["--config", cfg, "--frames", str(MP_FULL_FRAMES)]))
         counts.append(lc)
         require_launches(f"phase 7b 680x1200 {sync}", lc)
         mapper = res["mapper"]
@@ -1070,7 +1106,7 @@ def phase_7b(work, dev, smi):
         if not ev["psnr"] >= BENCH_PSNR:
             fail(f"phase 7b {sync}: PSNR {ev['psnr']:.3f} < {BENCH_PSNR}")
         dirs = set(os.listdir(os.path.join(save, "save_model")))
-        mid = {f"frame_{t:04d}" for t in range(len(infos))
+        mid = {f"frame_{t:04d}" for t in range(MP_FULL_FRAMES)
                if (t + 1) % int(args.save_step) == 0 or t == 0}
         if not mid <= dirs:
             fail(f"phase 7b {sync}: mid-run checkpoints {sorted(mid - dirs)} missing")
@@ -1087,7 +1123,8 @@ def phase_7b(work, dev, smi):
               f"(each thread's clock after its own stream's synchronize); wall "
               f"{wall_ms:.2f} ms per frame (frames 1..{len(ends) - 1}, between "
               f"mapping ends) against phase 6b's single-process tracking + "
-              f"mapping {single_ms:.2f} ms per frame; launches {lc}; "
+              f"mapping {single_ms:.2f} ms per frame (frames 1..{n - 1}); "
+              f"launches {lc}; "
               f"{time.perf_counter() - t0:.1f} s ({smi})")
     return add_counts(*counts)
 
@@ -1143,6 +1180,124 @@ def phase_7c(mapper, args, smi):
                          captured["final"]["fwd"], captured["final"]["bwd"], smi)
     print(f"[phase 7c] {time.perf_counter() - t0:.1f} s")
     return lc, works
+
+
+def phase_8_subprocess(smi):
+    """bench_torch.py as a subprocess at its default 170x300 x 40 with one
+    rep and RTG_PERF=1: exit 0, the JSON keys, the gates, ``detail.perf``."""
+    import bench_torch
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, BENCH_REPS="1", RTG_PERF="1")
+    for k in ("BENCH_PLATFORM", "BENCH_H", "BENCH_W", "BENCH_FRAMES",
+              "BENCH_WARMUP", "RTG_TRACE"):
+        env.pop(k, None)
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "bench_torch.py")],
+                          cwd=REPO, env=env, capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout[-3000:] + proc.stderr[-3000:])
+        fail(f"phase 8: bench_torch.py exited {proc.returncode}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    d = line.get("detail", {})
+    if set(line) != BENCH_KEYS or set(d) != BENCH_DETAIL_KEYS:
+        fail(f"phase 8: bench_torch.py keys {sorted(line)} / {sorted(d)}")
+    if line["metric"] != bench_torch.METRIC or line["unit"] != "fps":
+        fail(f"phase 8: metric {line['metric']} in {line['unit']}")
+    if (d["H"], d["W"], d["frames"], d["reps"]) != bench_torch.DEFAULT_SIZE + (1,):
+        fail(f"phase 8: ran {d['H']}x{d['W']} x {d['frames']} frames, {d['reps']} reps")
+    if not (d["psnr"] >= 27.5 and d["ate_cm"] <= 0.5 and d["bin_overflow"] == 0):
+        fail(f"phase 8: gates psnr {d['psnr']} ate {d['ate_cm']} overflow "
+             f"{d['bin_overflow']}")
+    if not BENCH_SPANS <= set(d["perf"]):
+        fail(f"phase 8: detail.perf lacks {sorted(BENCH_SPANS - set(d['perf']))}")
+    spans = {k: (v["count"], v["median_ms"]) for k, v in d["perf"].items()}
+    print(f"[phase 8] bench_torch.py (default 170x300 x 40, warm-up 12, 1 rep, "
+          f"RTG_PERF=1) exit 0 in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps({k: v for k, v in line.items() if k != 'detail'})}; "
+          f"{json.dumps({k: v for k, v in d.items() if k != 'perf'})}; host "
+          f"spans (count, median ms) {spans} ({smi})")
+
+
+def phase_8(cams, dev, smi):
+    """bench_torch.py's reps in process on phase 5's 680x1200 frames with
+    the launch counts reset just before.  Returns (launch counts,
+    check_launch's result on the run's first local optimize launch, the
+    run's mapper)."""
+    import bench_torch
+    from rtgslam_torch.models import optimize
+    from rtgslam_torch.ops.rasterize import blend
+    from rtgslam_torch.slam.run import make_args
+
+    t0 = time.perf_counter()
+    H, W = cams[0].image_height, cams[0].image_width
+    args = make_args(H, W, env_overrides=True)
+    captured, calls, restore = capture_optimize_launches(
+        blend, optimize, first=("local",))
+    try:
+        (result, _, mapper), counts = counted(lambda: bench_torch.bench(
+            args, copy.deepcopy(cams), BENCH_WARMUP_IN_PROCESS, 1, dev))
+    finally:
+        restore()
+    d = result["detail"]
+    renders = 2 * len(cams)   # lifecycle render per frame, spawn render from frame 1, eval
+    iters = sum(n for _, n, _ in calls)
+    if iters != args.gaussian_update_iter * len(mapper.optimize_frames_ids):
+        fail(f"phase 8: {iters} gradient iterations in calls {calls}")
+    for name, need in (("blend_fwd", renders), ("blend_fwd_residual", iters),
+                       ("blend_fwd_transmission", 1), ("blend_bwd", iters),
+                       ("blend_bwd_reduce", iters)):
+        if counts[name] < need:
+            fail(f"phase 8: {name} launched {counts[name]} times, needs {need}")
+    vals = [result["value"], d["ate_cm"], d["psnr"], d["depth_l1_cm"]]
+    if not all(math.isfinite(v) for v in vals) or d["bin_overflow"] != 0:
+        fail(f"phase 8: {H}x{W} result {result}")
+    if not d["ate_cm"] <= BENCH_ATE_CM or not d["psnr"] >= BENCH_PSNR:
+        fail(f"phase 8: {H}x{W} ATE {d['ate_cm']} cm, PSNR {d['psnr']}")
+    print(f"[phase 8] in process at {H}x{W} x {len(cams)} frames (warm-up "
+          f"{BENCH_WARMUP_IN_PROCESS}, 1 rep): {json.dumps(result)}; launches "
+          f"{counts} for {renders} renders and {iters} gradient iterations; "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
+    if set(captured.get("local", {})) != {"fwd", "bwd"}:
+        fail("phase 8 made no local optimize launch of K1 and K2")
+    works = check_launch("phase 8 first local optimize launch",
+                         captured["local"]["fwd"], captured["local"]["bwd"], smi)
+    return counts, works, mapper
+
+
+def check_segment_sum(mapper, cam, dev):
+    """F3: ``accumulate_gaussian_error`` on the lifecycle's inputs for
+    ``cam`` over ``mapper``'s map, twice on the card (bitwise equal) and
+    once on the CPU (another summation order: within SEGMENT_RTOL of the
+    largest total)."""
+    import torch
+    from rtgslam_torch.ops import segment
+
+    out = mapper._render(cam.device_dict(dev))
+    gt_color = torch.as_tensor(cam.image, device=dev)
+    gt_d = torch.as_tensor(cam.depth, device=dev)[..., 0]
+    depth_err = torch.clamp(gt_d - out["depth"][..., 0], min=0.0)
+    color_err = torch.sum(torch.abs(gt_color - out["render"]), dim=-1)
+    dix, cix = out["depth_index_map"], out["color_index_map"]
+    depth_err = torch.where((gt_d == 0) | (dix < 0), 0.0, depth_err)
+    color_err = torch.where(gt_d == 0, 0.0, color_err)
+    inputs = (color_err, depth_err, depth_err * 0.5 + color_err, cix, dix,
+              mapper.state.capacity)
+    a = segment.accumulate_gaussian_error(*inputs)
+    b = segment.accumulate_gaussian_error(*inputs)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail("F3: two runs of accumulate_gaussian_error on the card differ")
+    cpu = segment.accumulate_gaussian_error(
+        *[x.cpu() if torch.is_tensor(x) else x for x in inputs])
+    rel = max(float((x.cpu() - y).abs().max() / y.abs().max().clamp(min=1e-30))
+              for x, y in zip(a, cpu))
+    if not rel <= SEGMENT_RTOL:
+        fail(f"F3: the card's error sums differ from the CPU's by {rel:.3g} of "
+             f"the largest")
+    t = cuda_ms(lambda: segment.accumulate_gaussian_error(*inputs), 20)
+    print(f"[F3] accumulate_gaussian_error on {int((cix >= 0).sum())} colour-hit "
+          f"and {int((dix >= 0).sum())} depth-hit pixels over "
+          f"{mapper.state.capacity} slots: two runs bitwise equal, the CPU's "
+          f"sums within {rel:.3g} of the largest; {t:.4f} ms")
 
 
 def main():
@@ -1250,6 +1405,14 @@ def main():
     check_reference(res, REF_OPT_170, OPT_REF_TOL, "phase 4b")
     print(f"[phase 4b] {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 4c: the loop with optimization at 340x600 -------------------
+    t0 = time.perf_counter()
+    res = run_sequence(make_args(340, 600), make_cameras(FRAMES, 340, 600), dev,
+                       threefry.jax_priorities())
+    check_slice(res, "phase 4c 340x600 optimize")
+    check_reference(res, REF_OPT_340, OPT_REF_TOL, "phase 4c")
+    print(f"[phase 4c] {time.perf_counter() - t0:.1f} s")
+
     # ---- phase 5: the main path at 680x1200 -------------------------------
     t0 = time.perf_counter()
     args = make_args(680, 1200)
@@ -1333,6 +1496,9 @@ def main():
         by_phase["7b"] = phase_7b(work, dev, smi)
         by_phase["7c"], works["frozen"] = phase_7c(mapper, args, smi)
         by_phase["7a"], works["tum"] = phase_7a(work, dev, smi)
+    phase_8_subprocess(smi)
+    by_phase["8"], works["bench"], mapper8 = phase_8(cams, dev, smi)
+    check_segment_sum(mapper8, cams[-1], dev)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # the kernels line gives the local calls' shape, where most gradient

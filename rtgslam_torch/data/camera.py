@@ -1,7 +1,7 @@
 """Camera model.
 
 Numpy copy of ``rtgslam_tpu/data/camera.py`` (``CameraInfo``, ``Camera``,
-``load_camera``), which imports JAX through ``rtgslam_tpu.utils``.  ``R``
+``MiniCam``, ``load_camera``), which imports JAX through ``rtgslam_tpu.utils``.  ``R``
 is the camera-to-world rotation, ``T`` the world-to-camera translation
 (colmap convention), as in the reference ``scene/cameras.py``.
 ``device_dict`` gives the small pose and intrinsic tensors the render and
@@ -111,6 +111,49 @@ class Camera:
         )
         clone.image_height, clone.image_width = self.image_height, self.image_width
         return clone
+
+
+@dataclass
+class MiniCam:
+    """Render-only camera (``MiniCam`` :128, reference
+    ``cameras.py:195-218``): an image size, fields of view, clip planes and
+    a world-to-camera matrix."""
+
+    width: int
+    height: int
+    FoVy: float
+    FoVx: float
+    znear: float
+    zfar: float
+    w2c_matrix: np.ndarray   # world-to-camera 4x4
+    cx: Optional[float] = None
+    cy: Optional[float] = None
+
+    @property
+    def image_width(self):
+        return self.width
+
+    @property
+    def image_height(self):
+        return self.height
+
+    @property
+    def intrinsic(self) -> np.ndarray:
+        fx = geometry.fov2focal(self.FoVx, self.width)
+        fy = geometry.fov2focal(self.FoVy, self.height)
+        cx = self.cx if self.cx is not None else self.width / 2
+        cy = self.cy if self.cy is not None else self.height / 2
+        return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], dtype=np.float32)
+
+    def device_dict(self, device="cpu") -> dict:
+        """w2c [4,4], K [3,3] and campos [3] as float32 tensors."""
+        w2c = np.asarray(self.w2c_matrix, dtype=np.float32)
+        return {
+            "w2c": torch.as_tensor(w2c, device=device),
+            "K": torch.as_tensor(self.intrinsic, device=device),
+            "campos": torch.as_tensor(
+                np.linalg.inv(w2c)[:3, 3].astype(np.float32), device=device),
+        }
 
 
 def load_camera(args, uid: int, info: CameraInfo, resolution_scale: float = 1.0) -> Camera:

@@ -150,6 +150,18 @@ def render(gaussians: Dict[str, torch.Tensor], camera: Dict[str, torch.Tensor],
                              settings.height, settings.width)
 
 
+def render_from_camera(gaussians: Dict[str, torch.Tensor], cam, settings=None,
+                       args=None, tile_mask: Optional[torch.Tensor] = None,
+                       differentiable: bool = False) -> Dict[str, torch.Tensor]:
+    """:func:`render` from a host-side ``Camera`` or ``MiniCam``
+    (``render_from_camera`` :647), on the device of ``gaussians``; without
+    ``settings`` they come from ``args`` at the camera's size."""
+    if settings is None:
+        settings = RasterSettings.from_args(args, cam.image_height, cam.image_width)
+    return render(gaussians, cam.device_dict(gaussians["xyz"].device), settings,
+                  tile_mask, differentiable)
+
+
 def render_fixed_binning(gaussians: Dict[str, torch.Tensor],
                          order: torch.Tensor, tile_lists: torch.Tensor,
                          tile_counts: torch.Tensor,

@@ -36,6 +36,7 @@ from ..models.gaussian_map import (STABLE, UNSTABLE, GaussianMapConfig,
                                    MapState, alive_mask, load_numpy_dict,
                                    render_inputs, to_numpy_dict)
 from ..ops.rasterize import RasterSettings, render
+from ..utils import perf
 from ..utils import ply as ply_utils
 from ..utils.general import require_device
 from ..utils.geometry import rot_compare, trans_compare
@@ -63,12 +64,15 @@ class Mapper:
 
     def __init__(self, args, device="cuda",
                  priority_source: Optional[PrioritySource] = None):
-        if bool(getattr(args, "multi_device", False)):
-            raise NotImplementedError(
-                "multi_device=True is not ported: the JAX package's mesh "
-                "(parallel/) is under ROADMAP.md's \"Do not port\"")
         self.args = args
         self.device = setup_device(require_device(device))
+        # the JAX mapper builds its mesh only over more than one device
+        # (mapper.py:113); on one device multi_device runs this same path
+        if bool(getattr(args, "multi_device", False)) \
+                and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            raise NotImplementedError(
+                "multi_device=True over more than one CUDA device is not "
+                "ported yet (the JAX package's parallel/)")
         self.config = GaussianMapConfig.from_args(args)
         self.state = MapState.create(self.config, self.device)
         self.priorities = priority_source or generator_priorities(self.device)
@@ -118,6 +122,29 @@ class Mapper:
         # run-wide high-water mark of render bin overflow (all renders)
         self.max_overflow = 0
 
+        # TensorBoard scalars in single-process mode (``tb_writer`` :131,
+        # reference mapper.py:928-931,968-980); none where
+        # torch.utils.tensorboard is not installed, as in the JAX package
+        self.tb_writer = None
+        if bool(getattr(args, "use_tensorboard", False)) and \
+                getattr(args, "mode", "single process") == "single process":
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                self.tb_writer = SummaryWriter(self.save_path)
+
+    def train_report(self, iteration: int, losses: Dict[str, torch.Tensor]) -> None:
+        if self.tb_writer is not None:
+            for k, v in losses.items():
+                self.tb_writer.add_scalar(f"train/{k}", float(v), iteration)
+
+    def eval_report(self, iteration: int, metrics: Dict[str, float]) -> None:
+        if self.tb_writer is not None:
+            for k, v in metrics.items():
+                self.tb_writer.add_scalar(f"eval/{k}", float(v), iteration)
+
     # ------------------------------------------------------------------
     def _ensure_settings(self, frame: Camera):
         if self.settings is None:
@@ -131,6 +158,10 @@ class Mapper:
     @property
     def get_stable_num(self) -> int:
         return int((self.state.status == STABLE).sum())
+
+    @property
+    def get_total_iter(self) -> int:
+        return self.iter + self.time * self.gaussian_update_iter
 
     def _note_overflow(self, out) -> None:
         self.max_overflow = max(self.max_overflow, int(out["overflow"]))
@@ -191,11 +222,14 @@ class Mapper:
     def gaussians_add(self, frame: Camera):
         """Three-type spawning with its model/stable renders
         (``gaussians_add`` :228, reference mapper.py:128-132,728,849)."""
-        n, model_out = map_ops.spawn_chain(
-            self._next_priorities(), self.state, self.frame_map,
-            frame.device_dict(self.device), self.time, self._spawn_args(),
-            self.config, self.max_spawn, self.settings,
-            first_frame=self.time == 0, has_stable=self.get_stable_num > 0)
+        with perf.span("map.counter_fetch"):
+            has_stable = self.get_stable_num > 0
+        with perf.span("map.spawn_chain"):
+            n, model_out = map_ops.spawn_chain(
+                self._next_priorities(), self.state, self.frame_map,
+                frame.device_dict(self.device), self.time, self._spawn_args(),
+                self.config, self.max_spawn, self.settings,
+                first_frame=self.time == 0, has_stable=has_stable)
         if model_out is not None:
             self._note_overflow(model_out)
             self._set_model_map(model_out)
@@ -203,11 +237,14 @@ class Mapper:
 
     def _mapping_fused_frame(self, frame: Camera):
         """Non-optimize frame: spawn + lifecycle (``:306``)."""
-        n, model_out, out = map_ops.frame_chain(
-            self._next_priorities(), self.state, self.frame_map,
-            frame.device_dict(self.device), self.time, self._spawn_args(),
-            self._lifecycle_args(), self.config, self.max_spawn,
-            self.settings, has_stable=self.get_stable_num > 0)
+        with perf.span("map.counter_fetch"):
+            has_stable = self.get_stable_num > 0
+        with perf.span("map.frame_chain"):
+            n, model_out, out = map_ops.frame_chain(
+                self._next_priorities(), self.state, self.frame_map,
+                frame.device_dict(self.device), self.time, self._spawn_args(),
+                self._lifecycle_args(), self.config, self.max_spawn,
+                self.settings, has_stable=has_stable)
         self._note_overflow(model_out)
         self._note_overflow(out)
         self._set_model_map(model_out)
@@ -235,10 +272,11 @@ class Mapper:
         if not self._keyframe_predicate(frame):
             return False
         fm = self.frame_map
-        self.keyframe_list.append({
-            "frame": frame.drop_images(), "frame_id": frame_id,
-            "map": {"color_map": fm["color_map"], "depth_map": fm["depth_map"],
-                    "normal_map": fm["normal_map_w"]}})
+        with perf.span("map.keyframe_offload"):
+            self.keyframe_list.append({
+                "frame": frame.drop_images(), "frame_id": frame_id,
+                "map": {"color_map": fm["color_map"], "depth_map": fm["depth_map"],
+                        "normal_map": fm["normal_map_w"]}})
         return not is_first
 
     def update_poses(self, new_poses) -> None:
@@ -331,9 +369,13 @@ class Mapper:
         n_actual = len(entries)
         entries += [entries[-1]] * (self.memory_length - n_actual)
         n_iters = self.gaussian_update_iter
-        return self._optimize(entries, self._iteration_frames(n_actual, n_iters),
-                              n_iters, self._lrs(opt), self._weights(opt),
-                              "local", -1.0, self.history_merge_max_weight)
+        with perf.span("map.local_optimize"):
+            report = self._optimize(
+                entries, self._iteration_frames(n_actual, n_iters), n_iters,
+                self._lrs(opt), self._weights(opt), "local", -1.0,
+                self.history_merge_max_weight)
+        self.train_report(self.get_total_iter, report)
+        return report
 
     def global_optimization(self, opt, select_keyframe_num: int = -1):
         """Stable-map refinement over the newest keyframes; the final pass
@@ -377,10 +419,11 @@ class Mapper:
             n_actual = len(entries)
             entries += [entries[-1]] * (self.global_keyframe_num - n_actual)
             n_iters = self.gaussian_update_iter
-            return self._optimize(
-                entries, self._iteration_frames(n_actual, n_iters), n_iters,
-                lrs, weights, "global",
-                float(getattr(self.args, "global_opt_top_ratio", 0.4)), 0.0)
+            with perf.span("map.global_optimize"):
+                return self._optimize(
+                    entries, self._iteration_frames(n_actual, n_iters), n_iters,
+                    lrs, weights, "global",
+                    float(getattr(self.args, "global_opt_top_ratio", 0.4)), 0.0)
         report = None
         for kf_idx in self.rng.permutation(select_keyframe_num):
             n_iters = self.final_global_iter
@@ -400,10 +443,11 @@ class Mapper:
         (``lifecycle`` :731)."""
         rec = self.processed_frames[-1]
         fm = rec["frame_map"]
-        out = map_ops.lifecycle_chain(
-            self.state, rec["camera"].device_dict(self.device),
-            fm["color_map"], fm["depth_map"], self._lifecycle_args(),
-            self.settings)
+        with perf.span("map.lifecycle_chain"):
+            out = map_ops.lifecycle_chain(
+                self.state, rec["camera"].device_dict(self.device),
+                fm["color_map"], fm["depth_map"], self._lifecycle_args(),
+                self.settings)
         self._note_overflow(out)
         self._cache_render(out, (self.time, rec["camera"].uid))
 

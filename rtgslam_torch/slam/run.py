@@ -1,18 +1,20 @@
 """The per-frame SLAM loop.
 
 ``run_sequence`` runs the order of ``slam.py``'s single-process loop
-(:125-157, non-band branch; ``bench.py::run_rep`` :114) and then its
-end-of-run steps (:163-193): update poses, the final global pass and the
-last keyframe's eval.  ``make_args`` is ``bench.py::make_args(H, W,
-env_overrides=False)`` for this package: the Replica operating point sized
-to (H, W), 50 gradient iterations every 6th frame and 10 final-pass
-iterations per keyframe.  A caller that wants the forward-only loop sets
-``gaussian_update_iter`` and ``final_global_iter`` to 0.
+(:125-157, non-band branch) and then its end-of-run steps (:163-193):
+update poses, the final global pass and the last keyframe's eval
+(``bench_torch.py`` runs ``bench.py::run_rep``'s order instead).
+``make_args`` is ``bench.py::make_args`` for this package: the Replica
+operating point sized to (H, W), 50 gradient iterations every 6th frame and
+10 final-pass iterations per keyframe.  A caller that wants the
+forward-only loop sets ``gaussian_update_iter`` and ``final_global_iter``
+to 0.
 """
 
 from __future__ import annotations
 
 import os
+import tempfile
 import time
 from typing import Dict, List, Optional
 
@@ -28,8 +30,12 @@ from .tracker import Tracker
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def make_args(H: int, W: int):
-    """``bench.py::make_args(H, W, env_overrides=False)``."""
+def make_args(H: int, W: int, env_overrides: bool = False):
+    """``bench.py::make_args(H, W, env_overrides)``: the Replica operating
+    point sized to (H, W).  With ``env_overrides`` the capacities take
+    ``BENCH_MAP_CAPACITY`` / ``BENCH_TEMP_CAPACITY`` /
+    ``BENCH_TILE_CAPACITY`` / ``BENCH_BLOCK_CAPACITY`` and frozen binning
+    ``BENCH_FREEZE_BINNING`` from the environment (bench.py:79-89)."""
     args = read_config(os.path.join(REPO, "configs", "base.yaml"))
     args.memory_length = 5
     args.gaussian_update_iter = 50
@@ -41,13 +47,23 @@ def make_args(H: int, W: int):
     args.icp_use_model_depth = True
     args.max_depth = 8.0
     args.save_step = 10 ** 9
+    args.save_path = os.path.join(tempfile.gettempdir(), "bench_run")
     scale = (H * W) / (680 * 1200)
     args.map_capacity = max(16384, 1 << int(np.ceil(np.log2(400_000 * scale))))
     args.temp_capacity = max(4096, 1 << int(np.ceil(np.log2(65_000 * scale))))
     args.block_capacity = 4096
     args.tile_capacity = 512
-    args.max_visible = args.map_capacity // 2
     args.optimize_freeze_binning = False
+    if env_overrides:
+        for attr, env in (("map_capacity", "BENCH_MAP_CAPACITY"),
+                          ("temp_capacity", "BENCH_TEMP_CAPACITY"),
+                          ("tile_capacity", "BENCH_TILE_CAPACITY"),
+                          ("block_capacity", "BENCH_BLOCK_CAPACITY")):
+            if env in os.environ:
+                setattr(args, attr, int(os.environ[env]))
+        args.optimize_freeze_binning = bool(
+            int(os.environ.get("BENCH_FREEZE_BINNING", "0")))
+    args.max_visible = args.map_capacity // 2
     return args
 
 

@@ -36,6 +36,7 @@ from ..data.camera import Camera
 from ..ops import preprocess
 from ..ops.icp import (IcpTracker, build_icp_pyramids, fuse_model_depth,
                        icp_solve_all_levels)
+from ..utils import perf
 from ..utils import traj as traj_utils
 from ..utils.general import require_device
 from .loop_closure import LoopCloser
@@ -329,8 +330,9 @@ class Tracker:
     def _tracking_fused(self, frame: Camera, frame_map: Dict) -> bool:
         """gt / pure-ICP tracking, one chain per frame (``_tracking_fused``
         :354)."""
-        depth = self._tensor(frame.depth)
-        color = self._tensor(frame.image)
+        with perf.span("track.upload"):
+            depth = self._tensor(frame.depth)
+            color = self._tensor(frame.image)
         icp = self.icp
         success = True
         if self.use_gt_pose or not self.status["initialized"]:
@@ -354,24 +356,27 @@ class Tracker:
                 render_d, render_n, frame_n = t0_depth, zero3, zero3
             if self._last_rel is None:
                 self._last_rel = torch.eye(4, device=self.device)
-            fm, c2w, _, self._last_rel, _, ok = fused_icp_track_step(
-                depth, color, self.K, t0_depth, render_d, render_n, frame_n,
-                self._tensor(self._prev_c2w), self._last_rel,
-                self._frame_count >= 2,
-                min_depth=self.min_depth, max_depth=self.max_depth,
-                confidence_thresh=self.invalid_confidence_thresh,
-                use_filter=self.depth_filter, use_model=use_model,
-                use_motion_model=icp.use_motion_model,
-                downscales=tuple(icp.downscales), iters=tuple(icp.iters),
-                association=icp.association, levels=icp.levels,
-                damping=icp.damping,
-                distance_threshold=icp.distance_threshold,
-                normal_threshold=icp.normal_threshold,
-                sample_distance_threshold=icp.sample_distance_threshold,
-                sample_normal_threshold=icp.sample_normal_threshold,
-                fail_threshold=icp.fail_threshold)
+            with perf.span("track.dispatch"):
+                fm, c2w, _, self._last_rel, _, ok = fused_icp_track_step(
+                    depth, color, self.K, t0_depth, render_d, render_n, frame_n,
+                    self._tensor(self._prev_c2w), self._last_rel,
+                    self._frame_count >= 2,
+                    min_depth=self.min_depth, max_depth=self.max_depth,
+                    confidence_thresh=self.invalid_confidence_thresh,
+                    use_filter=self.depth_filter, use_model=use_model,
+                    use_motion_model=icp.use_motion_model,
+                    downscales=tuple(icp.downscales), iters=tuple(icp.iters),
+                    association=icp.association, levels=icp.levels,
+                    damping=icp.damping,
+                    distance_threshold=icp.distance_threshold,
+                    normal_threshold=icp.normal_threshold,
+                    sample_distance_threshold=icp.sample_distance_threshold,
+                    sample_normal_threshold=icp.sample_normal_threshold,
+                    fail_threshold=icp.fail_threshold)
             # the one per-frame device->host fetch: pose + success
-            host = torch.cat([c2w.reshape(-1), ok.reshape(1).to(c2w.dtype)]).cpu()
+            with perf.span("track.pose_fetch"):
+                host = torch.cat([c2w.reshape(-1),
+                                  ok.reshape(1).to(c2w.dtype)]).cpu()
             pose_t1_w = host[:16].reshape(4, 4).numpy()
             success = bool(host[16])
             if not success and self.loop_closer is not None:

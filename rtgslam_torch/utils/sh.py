@@ -22,6 +22,11 @@ def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / C0
 
 
+def sh_to_rgb(sh: torch.Tensor) -> torch.Tensor:
+    """DC SH coefficient -> RGB (``sh_to_rgb`` :27, reference ``SH2RGB``)."""
+    return sh * C0 + 0.5
+
+
 def sh_basis_cols(degree: int, x, y, z):
     """The (degree+1)^2 real-SH basis values as a list of [...] columns of
     the unit view direction (``sh.py::sh_basis_cols`` :35)."""
@@ -57,3 +62,42 @@ def eval_sh_flat(degree: int, sh_flat: torch.Tensor, x, y, z):
         out.append(acc)
     return tuple(out)
 
+
+
+def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """SH colors (``eval_sh`` :83): ``sh`` [..., K, 3] with K >=
+    (degree+1)^2, ``dirs`` [..., 3] unit view directions (gaussian centre
+    minus camera).  Returns [..., 3] linear colour, before the +0.5 shift
+    and the clamp; the terms add in the JAX package's order."""
+    result = C0 * sh[..., 0, :]
+    if degree >= 1:
+        x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
+        result = (
+            result
+            - C1 * y * sh[..., 1, :]
+            + C1 * z * sh[..., 2, :]
+            - C1 * x * sh[..., 3, :]
+        )
+        if degree >= 2:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            result = (
+                result
+                + C2[0] * xy * sh[..., 4, :]
+                + C2[1] * yz * sh[..., 5, :]
+                + C2[2] * (2.0 * zz - xx - yy) * sh[..., 6, :]
+                + C2[3] * xz * sh[..., 7, :]
+                + C2[4] * (xx - yy) * sh[..., 8, :]
+            )
+            if degree >= 3:
+                result = (
+                    result
+                    + C3[0] * y * (3 * xx - yy) * sh[..., 9, :]
+                    + C3[1] * xy * z * sh[..., 10, :]
+                    + C3[2] * y * (4 * zz - xx - yy) * sh[..., 11, :]
+                    + C3[3] * z * (2 * zz - 3 * xx - 3 * yy) * sh[..., 12, :]
+                    + C3[4] * x * (4 * zz - xx - yy) * sh[..., 13, :]
+                    + C3[5] * z * (xx - yy) * sh[..., 14, :]
+                    + C3[6] * x * (xx - 3 * yy) * sh[..., 15, :]
+                )
+    return result

@@ -55,15 +55,15 @@ def uniform(key, n: int) -> np.ndarray:
 
 
 def jax_priorities(seed: int = 2024):
-    """A ``Mapper`` priority source replaying the JAX mapper's stream."""
-    state = {"key": (_U(0), _U(seed)), "next": 0}
+    """A ``Mapper`` priority source replaying the JAX mapper's stream.  Draw
+    ``i`` is the same whatever was drawn before, so one source serves a
+    fresh ``Mapper`` per run, as the JAX package seeds one per run."""
+    keys = [(_U(0), _U(seed))]        # keys[i]: the mapper's key before draw i
 
     def draw(spawn_index: int, n: int):
-        if spawn_index != state["next"]:
-            raise ValueError("the JAX priority stream replays in order")
-        state["next"] += 1
-        state["key"], sub = split(state["key"])
-        k1, k2 = split(sub)
+        while len(keys) <= spawn_index:
+            keys.append(split(keys[-1])[0])
+        k1, k2 = split(split(keys[spawn_index])[1])
         return torch.from_numpy(uniform(k1, n)), torch.from_numpy(uniform(k2, n))
 
     return draw

@@ -12,7 +12,9 @@ trajectory export with its ATE, ``performance.json`` (fps = 1 / mean
 mapping time) and, with ``pcd_densify``, the densified point cloud.
 
 The device is CUDA unless ``--device cpu`` asks for the CPU; with no GPU
-and no such flag the run stops.  Each stage's clock is read after a device
+and no such flag the run stops.  ``RTG_PERF=1`` times the stages' host
+spans (``rtgslam_torch/utils/perf.py``); ``RTG_TRACE=<dir>`` writes a
+``torch.profiler`` trace of the run there.  Each stage's clock is read after a device
 synchronize.  A config's ``frame_bands`` is not ported (row bands served a
 TPU worker's dispatch limit): frames run whole.  Run from the repository
 root: a config's relative ``parent:`` is read relative to the working
@@ -44,6 +46,7 @@ def main(argv=None, priority_source=None):
     frame, the mapper, tracker and recorder."""
     cli = parse_args(argv)
     from rtgslam_torch.config import read_config
+    from rtgslam_torch.utils import perf
     from rtgslam_torch.utils.general import require_device, safe_state
 
     device = require_device(cli.device)
@@ -53,7 +56,8 @@ def main(argv=None, priority_source=None):
     stdout = sys.stdout
     safe_state(getattr(args, "quiet", False))
     try:
-        return _run(args, device, priority_source)
+        with perf.device_trace():   # RTG_TRACE=<dir>: a torch.profiler trace
+            return _run(args, device, priority_source)
     finally:
         sys.stdout = stdout
 

@@ -85,6 +85,43 @@ def test_eval_sh(degree):
                                np.asarray(jsh.rgb_to_sh(jnp.asarray(rgb))), atol=ATOL)
 
 
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+def test_eval_sh_stacked_and_sh_to_rgb(degree):
+    """``eval_sh`` on the stacked [..., K, 3] layout, over batch dimensions,
+    and ``sh_to_rgb`` against the JAX package's."""
+    rng = np.random.default_rng(10 + degree)
+    sh = rng.standard_normal((7, 30, 16, 3)).astype(np.float32)
+    d = rng.standard_normal((7, 30, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    a = np.asarray(jsh.eval_sh(degree, jnp.asarray(sh), jnp.asarray(d)))
+    b = tsh.eval_sh(degree, torch.from_numpy(sh), torch.from_numpy(d)).numpy()
+    assert b.shape == a.shape == (7, 30, 3)
+    np.testing.assert_allclose(b, a, atol=1e-5)   # sums of 16 products of O(1)
+    np.testing.assert_allclose(tsh.sh_to_rgb(torch.from_numpy(sh[..., 0, :])).numpy(),
+                               np.asarray(jsh.sh_to_rgb(jnp.asarray(sh[..., 0, :]))),
+                               atol=ATOL)
+
+
+def test_minicam_is_a_copy():
+    from rtgslam_tpu.data import MiniCam as JMiniCam
+    from rtgslam_torch.data import MiniCam
+
+    rng = np.random.default_rng(3)
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[:3, :3] = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+    w2c[:3, 3] = rng.standard_normal(3)
+    for cx in (None, 61.5):
+        kw = dict(width=128, height=96, FoVy=0.9, FoVx=1.1, znear=0.01,
+                  zfar=100.0, w2c_matrix=w2c, cx=cx, cy=cx and 40.25)
+        a, b = JMiniCam(**kw), MiniCam(**kw)
+        assert (a.image_width, a.image_height) == (b.image_width, b.image_height)
+        assert np.array_equal(a.intrinsic, b.intrinsic)
+        got = b.device_dict()
+        for k, v in a.device_dict().items():
+            assert got[k].dtype == torch.float32
+            assert np.array_equal(got[k].numpy(), v), k
+
+
 def test_synthetic_cameras_are_copies():
     from rtgslam_tpu.data.synthetic import make_cameras as jmake
     from rtgslam_torch.data.synthetic import make_cameras as tmake
@@ -125,3 +162,26 @@ def test_make_args_matches_bench():
         for k, v in vars(want).items():
             if k not in ("save_path", "optimize_freeze_binning"):
                 assert got[k] == v, k
+
+
+def test_make_args_env_overrides_match_bench(monkeypatch):
+    """With ``env_overrides`` the port's ``make_args`` takes bench.py's
+    capacity and frozen-binning variables as ``bench.make_args`` does; the
+    output path is ``bench_run`` in the temporary directory."""
+    sys.path.insert(0, REPO)
+    import bench
+    from rtgslam_torch.slam.run import make_args
+
+    for k, v in (("BENCH_MAP_CAPACITY", "65536"), ("BENCH_TEMP_CAPACITY", "8192"),
+                 ("BENCH_TILE_CAPACITY", "128"), ("BENCH_BLOCK_CAPACITY", "2048"),
+                 ("BENCH_FREEZE_BINNING", "1")):
+        monkeypatch.setenv(k, v)
+    want, _ = bench.make_args(96, 128)
+    got = vars(make_args(96, 128, env_overrides=True))
+    assert (got["map_capacity"], got["tile_capacity"], got["max_visible"]) \
+        == (65536, 128, 32768)
+    assert os.path.basename(got["save_path"]) == os.path.basename(want.save_path)
+    for k, v in vars(want).items():
+        if k != "save_path":
+            assert got[k] == v, k
+    assert vars(make_args(96, 128))["tile_capacity"] == 512

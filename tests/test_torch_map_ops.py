@@ -146,6 +146,30 @@ def test_segment_ops():
                               np.asarray(jseg.stable_partition_order(jnp.asarray(mask))))
 
 
+def test_segment_sum_is_order_independent():
+    """The per-gaussian sums repeat bit for bit whatever order the pixels
+    come in (values of mixed sign and magnitude, so a changed summation
+    order would show in the last bits), and the counts are exact."""
+    rng = np.random.default_rng(11)
+    n, P = 20000, 300
+    vals = (rng.standard_normal(n) * 10.0 ** rng.integers(-6, 3, n)).astype(np.float32)
+    idx = rng.integers(-1, P, n)
+    errs = [vals, vals[::-1].copy(), np.abs(vals)]
+    base = tseg.accumulate_gaussian_error(
+        *[_t(e) for e in errs], _t(idx), _t(idx), P)
+    for seed in range(3):
+        perm = np.random.default_rng(seed).permutation(n)
+        got = tseg.accumulate_gaussian_error(
+            *[_t(e[perm]) for e in errs], _t(idx[perm]), _t(idx[perm]), P)
+        for a, b in zip(got, base):
+            assert torch.equal(a, b)
+    seg = torch.where(_t(idx) >= 0, _t(idx), P)
+    total, count = tseg.segment_sum(_t(vals), seg, P + 1)
+    assert count.tolist() == np.bincount(seg.numpy(), minlength=P + 1).tolist()
+    want = np.bincount(seg.numpy(), weights=vals.astype(np.float64), minlength=P + 1)
+    np.testing.assert_allclose(total.numpy(), want, rtol=1e-5, atol=1e-3)
+
+
 # ---------------------------------------------------------------------------
 # map state and lifecycle
 # ---------------------------------------------------------------------------
@@ -312,9 +336,10 @@ def test_threefry_replays_jax_random():
 
 def test_mapper_refuses_gradient_iterations(monkeypatch):
     """Gradient iterations and the frozen binning of
-    ``optimize_freeze_binning`` construct; the multi-chip mesh
-    (``multi_device``, ROADMAP "Do not port") is refused; the default device
-    is CUDA, which raises where there is none."""
+    ``optimize_freeze_binning`` construct; ``multi_device`` constructs on one
+    device, as the JAX mapper runs it there, and is refused over more than
+    one CUDA device (the JAX package's mesh is not ported); the default
+    device is CUDA, which raises where there is none."""
     from rtgslam_torch.slam.mapper import Mapper
 
     args = read_config(os.path.join(REPO, "configs", "base.yaml"))
@@ -327,5 +352,8 @@ def test_mapper_refuses_gradient_iterations(monkeypatch):
     with pytest.raises(SystemExit, match="no CUDA device"):
         Mapper(args)
     args.multi_device = True
+    Mapper(args, "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="multi_device"):
-        Mapper(args, "cpu")
+        Mapper(args)

@@ -255,6 +255,44 @@ def test_optimize_execute_matches(problem):
     assert (state.confidence.numpy() > np.asarray(jstate.confidence)).any()
 
 
+def test_optimize_execute_global_matches(problem):
+    """Five iterations of the compact loop in a windowed global pass (the
+    stable pool, the top-40 % color-error tile masks, no history merge,
+    the global pass's learning rates: xyz frozen, the rest at a tenth)."""
+    jstate, arrays, jst, tst = problem
+    n_iters, seq = 5, np.array([1, 0, 1, 1, 1])
+    lrs = dict({k: LR * 0.1 for k in topt.PARAM_KEYS}, xyz=0.0)
+    (rmasks, _, lists_orig, counts, pool_order, tile_order, n_pool, cnt_max,
+     n_live) = jopt.optimize_prepare(jstate, *_jframes(arrays), settings=jst,
+                                     mode="global", sample_ratio=0.4,
+                                     mask_depth_positive=False)
+    P, T_full = jstate.capacity, counts.shape[1]
+    Ac = _bucket(int(n_pool), 256, P)
+    Ktc = _bucket(int(cnt_max), 64, lists_orig.shape[-1])
+    Tc = _bucket(int(n_live), 32, T_full)
+    want_state, want_report = jopt.optimize_execute(
+        jstate, *_jframes(arrays), rmasks, lists_orig, counts,
+        pool_order[:Ac], n_pool, tile_order[:, :Tc], jnp.asarray(seq),
+        n_iters, {k: jnp.float32(v) for k, v in lrs.items()},
+        _jweights(_weights()), jst, mode="global", max_weight=0.0, Ac=Ac,
+        Ktc=Ktc, Tc=Tc)
+
+    state = _port_state(jstate)
+    prep = topt.optimize_prepare(state, *_tframes(arrays), tst, "global", 0.4,
+                                 False)
+    report = topt.optimize_execute(
+        state, *_tframes(arrays), prep.rmasks, prep.lists_orig, prep.counts,
+        prep.pool_order[:prep.n_pool], prep.n_pool,
+        prep.tile_order[:, :prep.n_live_tiles], seq, n_iters, lrs, _weights(),
+        tst, "global", 0.0,
+        topt.list_crop(prep.cnt_max, prep.lists_orig.shape[-1]))
+    _compare_reports(report, want_report)
+    _compare_states(state, want_state)
+    moved = np.abs(state.features_dc.numpy()
+                   - np.asarray(jstate.features_dc)).sum(-1) > 0
+    assert moved[:32].any() and not moved[32:].any()     # stable rows only
+
+
 def test_optimize_chain_global_matches(problem):
     """The full-render loop of a global pass with the top-40 % color-error
     tile masks (``optimize_chain``, ``sample_ratio=0.4``)."""

@@ -29,6 +29,7 @@ from rtgslam_torch.ops.rasterize import blend as tblend  # noqa: E402
 from rtgslam_torch.ops.rasterize import project as tproj  # noqa: E402
 
 torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
 SCENES = [(0, 8), (1, 24), (3, 40)]          # (seed, alive gaussians)
 
@@ -167,6 +168,33 @@ def test_render_matches(seed, n_alive):
     want = japi.render(g, cam, st)
     tg, tc, ts = _port_scene(g, cam, st)
     _assert_tree(tapi.render(tg, tc, ts), want)
+
+
+def test_render_from_camera_matches():
+    """``render_from_camera`` from a ``MiniCam`` and from a synthetic
+    ``Camera``, with settings from a config, against the JAX package's."""
+    from rtgslam_tpu.config import read_config
+    from rtgslam_tpu.data import MiniCam as JMiniCam
+    from rtgslam_tpu.data.synthetic import make_cameras as jmake
+    from rtgslam_torch.data import MiniCam
+    from rtgslam_torch.data.synthetic import make_cameras as tmake
+
+    g, _, _ = make_scene(P=64, n_alive=40, seed=3)
+    tg = {k: _t(v) for k, v in g.items()}
+    args = read_config(os.path.join(REPO, "configs", "base.yaml"))
+    args.tile_capacity, args.block_capacity = 1024, 256
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[:3, 3] = [0.1, -0.05, 0.2]
+    kw = dict(width=96, height=64, FoVy=0.8, FoVx=1.1, znear=0.01, zfar=100.0,
+              w2c_matrix=w2c)
+    cams = [(JMiniCam(**kw), MiniCam(**kw)),
+            (jmake(1, 64, 96)[0], tmake(1, 64, 96)[0])]
+    for jc, tc in cams:
+        want = japi.render_from_camera(g, jc, args=args)
+        _assert_tree(tapi.render_from_camera(tg, tc, args=args), want)
+    st = tapi.RasterSettings.from_args(args, 64, 96)
+    _assert_tree(tapi.render_from_camera(tg, cams[0][1], settings=st),
+                 japi.render_from_camera(g, cams[0][0], args=args))
 
 
 @pytest.mark.parametrize("max_visible", [131072, 96])

@@ -124,9 +124,12 @@ def test_opt_slice_gaussian_counts_and_overflow(opt_runs):
 
 def test_port_runs_without_jax(tmp_path):
     """In a fresh interpreter where importing JAX or the JAX package fails,
-    the port's modules and its three entry points import, the slice runs on
-    the CPU, and ``slam_torch.py`` / ``metric_torch.py`` / ``slam_mp_torch.py``
-    run a 3-frame scene written to disk."""
+    the port's modules, its four entry points and its three scripts import,
+    the slice runs on the CPU, ``slam_torch.py`` / ``metric_torch.py`` /
+    ``slam_mp_torch.py`` run a 3-frame scene written to disk (the scene from
+    ``scripts/make_synthetic_torch.py``), ``bench_torch.py`` runs 3 frames
+    with its spans on, and ``scripts/eval_ate_torch.py`` /
+    ``associate_torch.py`` read the run's trajectory."""
     code = textwrap.dedent("""
         import importlib, sys
         class Block:
@@ -136,8 +139,8 @@ def test_port_runs_without_jax(tmp_path):
         sys.meta_path.insert(0, Block())
         import torch
         torch.set_num_threads(1)
-        for m in ("slam_torch", "metric_torch", "slam_mp_torch",
-                  "rtgslam_torch.config",
+        for m in ("slam_torch", "metric_torch", "slam_mp_torch", "bench_torch",
+                  "rtgslam_torch.config", "rtgslam_torch.data",
                   "rtgslam_torch.data.camera", "rtgslam_torch.data.dataset",
                   "rtgslam_torch.data.loader", "rtgslam_torch.data.synthetic",
                   "rtgslam_torch.models.densify", "rtgslam_torch.models.gaussian_map",
@@ -148,15 +151,23 @@ def test_port_runs_without_jax(tmp_path):
                   "rtgslam_torch.slam.loop_closure", "rtgslam_torch.slam.system",
                   "rtgslam_torch.utils.general",
                   "rtgslam_torch.utils.image_io", "rtgslam_torch.utils.monitor",
-                  "rtgslam_torch.utils.ply", "rtgslam_torch.utils.traj"):
+                  "rtgslam_torch.utils.ply", "rtgslam_torch.utils.traj",
+                  "rtgslam_torch.utils.perf", "rtgslam_torch.utils.sh",
+                  "rtgslam_torch.ops.rasterize", "rtgslam_torch.ops.segment"):
             importlib.import_module(m)
-        from rtgslam_torch.data.synthetic import make_cameras, write_scene
+        import os, runpy
+        def script(name, *argv):
+            sys.argv = [name, *argv]
+            runpy.run_path(os.path.join("scripts", name), run_name="__main__")
+        from rtgslam_torch.data.synthetic import make_cameras
         from rtgslam_torch.slam.run import make_args, run_sequence
         args = make_args(48, 64)
         res = run_sequence(args, make_cameras(2, 48, 64), "cpu")
         assert res["n_stable"] > 0 and res["max_overflow"] == 0, res
         tmp = sys.argv[1]
-        scene = write_scene(tmp + "/scene", 3, 48, 64)
+        scene = tmp + "/scene"
+        script("make_synthetic_torch.py", "--out", scene, "--frames", "3",
+               "--height", "48", "--width", "64")
         with open(tmp + "/c.yaml", "w") as f:
             f.write("parent: configs/synthetic/room.yaml\\n"
                     f"source_path: {scene}\\nsave_path: {tmp}/out\\n"
@@ -175,6 +186,16 @@ def test_port_runs_without_jax(tmp_path):
                     "sync_tracker2mapper_frames: 1\\ntracker_max_fps: 1000\\n")
         mp = slam_mp_torch.main(["--config", tmp + "/mp.yaml", "--device", "cpu"])
         assert mp["ate_cm"] < 1.0 and mp["mapper"].get_stable_num > 0, mp
+        tum = tmp + "/out/save_traj/traj_tum.txt"
+        script("eval_ate_torch.py", tum, tum)
+        script("associate_torch.py", tum, tum)
+        os.environ.update(BENCH_PLATFORM="cpu", BENCH_H="48", BENCH_W="64",
+                          BENCH_FRAMES="3", BENCH_WARMUP="1", BENCH_REPS="1")
+        import bench_torch
+        from rtgslam_torch.utils import perf
+        perf.ENABLED = True
+        line = bench_torch.main([])
+        assert line["detail"]["frames"] == 3 and "perf" in line["detail"], line
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "rtgslam_tpu", "flax")]
         assert not bad, bad
@@ -184,3 +205,27 @@ def test_port_runs_without_jax(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_multi_device_on_one_device_equals_the_plain_run():
+    """``multi_device`` on one device runs the single-device path, as the
+    JAX mapper does with one device: the run equals the run without the
+    flag, bit for bit (two optimize passes and the final pass at 48x64)."""
+    from rtgslam_torch.data.synthetic import make_cameras
+    from rtgslam_torch.slam.run import make_args, run_sequence
+
+    cams = make_cameras(3, 48, 64)
+    runs = []
+    for flag in (False, True):
+        args = make_args(48, 64)
+        args.gaussian_update_iter, args.gaussian_update_frame = 3, 2
+        args.final_global_iter = 2
+        args.multi_device = flag
+        runs.append(run_sequence(args, copy.deepcopy(cams), "cpu"))
+    a, b = runs
+    assert np.array_equal(a["poses"], b["poses"])
+    assert a["eval"] == b["eval"] and a["counts"] == b["counts"]
+    assert len(a["optimize_frames"]) == 2
+    for f in ("xyz", "features_dc", "opacity", "scaling", "status"):
+        assert torch.equal(getattr(a["mapper"].state, f),
+                           getattr(b["mapper"].state, f)), f

@@ -35,6 +35,19 @@ native pose backend with loop detection on; ``--mp`` runs the pipelined
 those flags name and prints the gaps (``--threads`` sets torch's threads):
 
     python tests/torch_parity.py --port --entry --orb --height 170 --width 300 --threads 3
+
+``--orb --trace`` runs ``slam.py`` and the port in process on that
+reference's scene, records the map, every mapped frame's PSNR and the
+poses handed to ``update_poses`` after each gradient pass, and prints the
+per-pass table; ``--trace-side`` runs one package alone, ``--perturb SEED``
+scales the frames' colour by a rounding-size factor, and ``--compare``
+tables any two traces.  ``tests/data/orb_trace_170x300.json`` holds the
+tables of the port against JAX and of perturbed runs against unperturbed
+ones (the commands are in that file):
+
+    python tests/torch_parity.py --orb --trace --height 170 --width 300 --threads 1 --out T
+    python tests/torch_parity.py --orb --trace-side jax --perturb 1 --height 170 --width 300 --out T/jax_p1
+    python tests/torch_parity.py --compare T/jax T/jax_p1/jax --table F --name jax_perturb_1
 """
 
 from __future__ import annotations
@@ -56,6 +69,14 @@ REF_JSON = os.path.join(REPO, "tests", "data", "slice_170x300_jax_cpu.json")
 REF_OPT_JSON = os.path.join(REPO, "tests", "data",
                             "slice_opt_170x300_jax_cpu.json")
 ROOM_YAML = os.path.join(REPO, "configs", "synthetic", "room.yaml")
+
+
+def slice_reference(H: int, W: int, optimize: bool) -> str:
+    """The in-process slice reference at H x W (``REF_JSON`` and
+    ``REF_OPT_JSON`` at 170x300)."""
+    kind = "slice_opt" if optimize else "slice"
+    return os.path.join(REPO, "tests", "data", f"{kind}_{H}x{W}_jax_cpu.json")
+
 
 # The entry-point runs' child configs of configs/synthetic/room.yaml, by
 # frame size.  Keyframe thresholds low enough that every optimization frame
@@ -469,6 +490,209 @@ def port_main(a):
                                          ref["checkpoint_rows"], 0.02)}))
 
 
+# the map fields a trace keeps after each pass (both packages' MapState)
+TRACE_FIELDS = ("xyz", "features_dc", "opacity", "scaling", "rotation",
+                "confidence", "status")
+
+
+def _install_trace(Mapper, eval_frame, to_np, log):
+    """Wrap ``Mapper``'s methods so a run records, after each gradient pass,
+    the map (``TRACE_FIELDS``) and the PSNR of every frame mapped so far, and
+    every pose list handed to ``update_poses``.  Both packages' mappers have
+    the same method names and signatures."""
+    orig = {n: getattr(Mapper, n) for n in
+            ("mapping", "local_optimize", "global_optimization", "update_poses")}
+    frames = []
+
+    def snapshot(self, kind):
+        log["passes"].append({
+            "time": self.time, "kind": kind,
+            "state": {f: to_np(getattr(self.state, f)) for f in TRACE_FIELDS},
+            "psnr": [float(eval_frame(self, f)["psnr"]) for f in frames]})
+
+    def mapping(self, frame, frame_map, frame_id, opt):
+        frames.append(frame)
+        return orig["mapping"](self, frame, frame_map, frame_id, opt)
+
+    def local_optimize(self, frame, opt):
+        out = orig["local_optimize"](self, frame, opt)
+        snapshot(self, "local")
+        return out
+
+    def global_optimization(self, opt, select_keyframe_num=-1, **kw):
+        out = orig["global_optimization"](self, opt, select_keyframe_num, **kw)
+        snapshot(self, "final" if select_keyframe_num == -1 else "global")
+        return out
+
+    def update_poses(self, new_poses):
+        if new_poses is not None:
+            log["poses"].append({"time": self.time,
+                                 "poses": np.array(new_poses, np.float64)})
+        return orig["update_poses"](self, new_poses)
+
+    for name, fn in (("mapping", mapping), ("local_optimize", local_optimize),
+                     ("global_optimization", global_optimization),
+                     ("update_poses", update_poses)):
+        setattr(Mapper, name, fn)
+
+
+def _install_perturbation(side, seed):
+    """Scale every frame's colour by 1 + u * 2^-22, u uniform in [-1, 1)
+    from ``seed``, before tracking: a perturbation of rounding size, to see
+    how far a run's result moves with the last bits of its inputs."""
+    if side == "jax":
+        from rtgslam_tpu.slam import Tracker
+    else:
+        from rtgslam_torch.slam.tracker import Tracker
+    rng = np.random.default_rng(seed)
+    orig = Tracker.map_preprocess
+
+    def map_preprocess(self, frame, frame_id):
+        img = np.asarray(frame.image, np.float32)
+        frame.image = img * (1 + rng.uniform(-1, 1, img.shape).astype(np.float32)
+                             * np.float32(2.0 ** -22))
+        return orig(self, frame, frame_id)
+
+    Tracker.map_preprocess = map_preprocess
+
+
+def _write_trace(log, path):
+    arrays, meta = {}, {"passes": [], "poses": []}
+    for i, p in enumerate(log["passes"]):
+        for f, v in p["state"].items():
+            arrays[f"p{i}_{f}"] = v
+        meta["passes"].append({k: p[k] for k in ("time", "kind", "psnr")})
+    for i, p in enumerate(log["poses"]):
+        arrays[f"u{i}"] = p["poses"]
+        meta["poses"].append({"time": p["time"]})
+    np.savez_compressed(path + ".npz", **arrays)
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f)
+
+
+def trace_side(a):
+    """One package's traced entry-point run (``--trace``'s child process):
+    ``slam.py`` in-process for ``jax``, ``slam_torch.main`` with JAX's spawn
+    priorities for ``port``, on the reference's scene and child config."""
+    import runpy
+
+    with open(reference_name(a.height, a.width, a.orb, a.mp)) as f:
+        ref = json.load(f)
+    log = {"passes": [], "poses": []}
+    sys.path.insert(0, REPO)
+    os.chdir(REPO)
+    with tempfile.TemporaryDirectory() as tmp:
+        if a.trace_side == "jax":
+            import jax
+
+            jax.config.update("jax_platforms", "cpu")
+            from rtgslam_tpu.data.synthetic import write_scene
+            from rtgslam_tpu.slam import Mapper
+            from rtgslam_tpu.slam.eval import eval_frame
+            to_np = np.asarray
+        else:
+            import torch
+
+            torch.set_num_threads(a.threads)
+            from rtgslam_torch.data.synthetic import write_scene
+            from rtgslam_torch.slam.eval import eval_frame
+            from rtgslam_torch.slam.mapper import Mapper
+            to_np = lambda t: t.detach().cpu().numpy().copy()
+        _install_trace(Mapper, eval_frame, to_np, log)
+        if a.perturb:
+            _install_perturbation(a.trace_side, a.perturb)
+        scene = write_scene(os.path.join(tmp, "scene"), ref["frames"],
+                            ref["height"], ref["width"])
+        cfg = write_child_config(os.path.join(tmp, "c.yaml"), ROOM_YAML, scene,
+                                 os.path.join(tmp, "out"), ref["overrides"])
+        if a.trace_side == "jax":
+            sys.argv = ["slam.py", "--platform", "cpu", "--config", cfg]
+            runpy.run_path(os.path.join(REPO, "slam.py"),
+                           run_name="traced_slam")["main"]()
+        else:
+            import slam_torch
+            from rtgslam_torch.utils.threefry import jax_priorities
+
+            slam_torch.main(["--config", cfg, "--device", "cpu"],
+                            priority_source=jax_priorities())
+    os.makedirs(a.out, exist_ok=True)
+    _write_trace(log, os.path.join(a.out, a.trace_side))
+
+
+def _read_trace(prefix):
+    with open(prefix + ".json") as f:
+        meta = json.load(f)
+    return meta, np.load(prefix + ".npz")
+
+
+def compare_traces(a_prefix, b_prefix):
+    """The per-pass table of two traces (path prefixes of
+    :func:`_write_trace`'s files; each pair in a row is [a, b]): gaussian
+    counts, slots whose status differs, the largest parameter gaps over the
+    slots alive in both, the frames' PSNR, and the largest gap of the poses
+    each run handed to ``update_poses`` up to that pass."""
+    (mj, aj), (mp_, ap) = _read_trace(a_prefix), _read_trace(b_prefix)
+    rows = []
+    for i, (pj, pp) in enumerate(zip(mj["passes"], mp_["passes"])):
+        sj, sp = aj[f"p{i}_status"], ap[f"p{i}_status"]
+        both = (sj > 0) & (sp > 0)
+        gap = {f: float(np.abs(aj[f"p{i}_{f}"][both] - ap[f"p{i}_{f}"][both]).max(
+            initial=0.0)) for f in ("xyz", "features_dc", "opacity", "scaling")}
+        poses = [k for k, u in enumerate(mj["poses"]) if u["time"] <= pj["time"]]
+        pose_gap = max((float(np.abs(aj[f"u{k}"] - ap[f"u{k}"]).max())
+                        for k in poses if f"u{k}" in ap), default=0.0)
+        psnr_j, psnr_p = np.array(pj["psnr"]), np.array(pp["psnr"])
+        rows.append({
+            "pass": i, "time": pj["time"], "kind": [pj["kind"], pp["kind"]],
+            "unstable": [int((sj == 1).sum()), int((sp == 1).sum())],
+            "stable": [int((sj == 2).sum()), int((sp == 2).sum())],
+            "status_differs": int((sj != sp).sum()), **gap,
+            "pose_gap": pose_gap,
+            "psnr_mean": [float(psnr_j.mean()), float(psnr_p.mean())],
+            "psnr_worst_gap": float(np.abs(psnr_j - psnr_p).max()),
+            "psnr_last": [float(psnr_j[-1]), float(psnr_p[-1])]})
+    return rows
+
+
+def compare_main(a):
+    """``--compare A B``: print the per-pass table of two traces; with
+    ``--table FILE --name NAME`` also store it under NAME in the JSON file
+    FILE (created if absent)."""
+    rows = compare_traces(*a.compare)
+    for r in rows:
+        print(json.dumps(r))
+    if a.table:
+        tables = {}
+        if os.path.exists(a.table):
+            with open(a.table) as f:
+                tables = json.load(f)
+        tables[a.name or "table"] = rows
+        with open(a.table, "w") as f:
+            json.dump(tables, f, indent=1)
+
+
+def trace_main(a):
+    """Run both traced sides as child processes at once, then print the
+    per-pass table as JSON lines (and write it to ``--out``/table.json)."""
+    out = a.out or tempfile.mkdtemp(prefix="trace_")
+    os.makedirs(out, exist_ok=True)
+    flags = [f"--{k}" for k in ("orb", "mp") if getattr(a, k)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--trace-side", side,
+         "--out", out, "--height", str(a.height), "--width", str(a.width),
+         "--threads", str(a.threads), "--perturb", str(a.perturb), *flags],
+        env=dict(os.environ, JAX_PLATFORMS="cpu"),
+        stdout=open(os.path.join(out, side + ".log"), "w"),
+        stderr=subprocess.STDOUT) for side in ("jax", "port")]
+    if any(p.wait() for p in procs):
+        raise SystemExit(f"a traced run failed: see {out}/*.log")
+    rows = compare_traces(os.path.join(out, "jax"), os.path.join(out, "port"))
+    with open(os.path.join(out, "table.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    for r in rows:
+        print(json.dumps(r))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=12)
@@ -487,8 +711,35 @@ def main():
                          "(read from --out when given) and print the gaps")
     ap.add_argument("--threads", type=int, default=3,
                     help="with --port: torch's CPU threads")
+    ap.add_argument("--trace", action="store_true",
+                    help="with --orb: run slam.py and the port in-process, "
+                         "record the map, the frames' PSNR and the refreshed "
+                         "poses after each pass, and print the per-pass table "
+                         "(the traces go to --out)")
+    ap.add_argument("--trace-side", choices=("jax", "port"), default=None,
+                    help="with --orb: one package's traced run alone, written "
+                         "to --out/<side>.json and .npz")
+    ap.add_argument("--perturb", type=int, default=0,
+                    help="with --trace or --trace-side: scale each frame's "
+                         "colour by a rounding-size random factor from this "
+                         "seed (0: off)")
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"), default=None,
+                    help="print the per-pass table of two traces (path "
+                         "prefixes, e.g. OUT/jax and OUT/port)")
+    ap.add_argument("--table", default=None,
+                    help="with --compare: also store the table in this JSON file")
+    ap.add_argument("--name", default=None,
+                    help="with --table: the table's key in that file")
     ap.add_argument("--out", default=None)
     a = ap.parse_args()
+    if a.compare:
+        return compare_main(a)
+    if a.trace_side:
+        if not a.out:
+            ap.error("--trace-side needs --out")
+        return trace_side(a)
+    if a.trace:
+        return trace_main(a)
     if a.port:
         return port_main(a)
 
@@ -498,7 +749,7 @@ def main():
     sys.path.insert(0, REPO)
     if a.entry or a.mp:
         return entry_main(a)
-    out_path = a.out or (REF_OPT_JSON if a.optimize else REF_JSON)
+    out_path = a.out or slice_reference(a.height, a.width, a.optimize)
     import bench
     from rtgslam_tpu.data.synthetic import make_cameras
 
