@@ -57,7 +57,9 @@ Phases (any failure exits non-zero, and nothing falls back to the CPU):
       keys, tests/torch_parity.py::TUM_KEYS: the staged tracking path through
       the native pose backend, loop detection, the depth filter, a gradient
       pass every 4th frame): slam_torch.py + metric_torch.py on phase 6a's
-      room on disk against tests/data/entry_orb_170x300_jax_cpu.json; then
+      room on disk against tests/data/entry_orb_170x300_jax_cpu.json, the
+      final keyframe's PSNR inside the range of JAX's own perturbed runs
+      (tests/data/entry_orb_170x300_jax_spread.json); then
       at TUM's 480x640, 12 frames out and 11 back with a check every frame:
       ATE <= 1 cm, PSNR >= 27.5, overflow 0, a loop closed, the split of the
       tracking time (ICP, backend, loop check), K1 and K2 on the run's own
@@ -83,12 +85,29 @@ Phases (any failure exits non-zero, and nothing falls back to the CPU):
       their twins;
   F3. accumulate_gaussian_error on the lifecycle's inputs for phase 5's
       last frame over phase 8's map: two runs on the card bitwise equal,
-      the CPU's sums within SEGMENT_RTOL of the largest.
-Phases 7b and 7c run before 7a.
-Each of phases 5, 6b, 7a, 7b, 7c and 8 resets the launch counts just before
+      the CPU's sums within SEGMENT_RTOL of the largest;
+  9.  the multi-device path (rtgslam_torch/parallel/) on a mesh of
+      MESH_SHARDS virtual shards of cuda:0, with phase 5's map and frames:
+      9a sp_render of the final map from the last camera against render,
+      every output bitwise, K1 launched once per shard and one shard's
+      launch against its twin; 9b dp_local_optimize and dp_global_optimize
+      (sample ratio -1) with the last frame on every shard, DP_STEPS
+      iterations, against the one-device optimize_chain on that frame:
+      parameters bitwise, the local pass's confidence bitwise, the global
+      pass's unchanged; 9c sp_optimize_execute on the inputs of phase 5's
+      last local call, SP_ITERS iterations, against optimize_execute on
+      them (the JAX test's tolerances, SP_TOL; the line reports whether
+      they are bitwise equal, as the sharded blend's one reduce makes
+      them); 9d the mapper with mesh= and multi_device on phase 5's
+      frames with 6b's keys at MESH_ITERS
+      iterations: overflow 0, ATE <= 1 cm, PSNR >= 27.5, a local and a
+      windowed global call on the mesh, every kernel launched, the first
+      local launch of K1's residual mode and K2 against their twins.
+Phases 7b and 7c run before 7a; phase 9 runs after 3b/3e and before 6a.
+Each of phases 5, 6b, 7a, 7b, 7c, 8 and 9 resets the launch counts just before
 its runs and reads them just after, and fails if a kernel its path runs was
 not launched there.
-For every launch measured in 3b, 3e, 6b, 7a-7c and 8 the script prints the live
+For every launch measured in 3b, 3e, 6b, 7a-7c, 8 and 9 the script prints the live
 (pixel, entry) pairs its inputs need and how many of them have a non-zero
 alpha, the least time the card could take for that work (the bound: FP32
 operations over 67 TFLOP/s or bytes over 3.35 TB/s, whichever is larger;
@@ -101,6 +120,7 @@ The line before the last is the kernel report, the last the device line.
 
 import copy
 import csv
+import functools
 import inspect
 import json
 import math
@@ -115,6 +135,11 @@ REF_170 = os.path.join(REPO, "tests", "data", "slice_170x300_jax_cpu.json")
 REF_OPT_170 = os.path.join(REPO, "tests", "data", "slice_opt_170x300_jax_cpu.json")
 REF_ENTRY_170 = os.path.join(REPO, "tests", "data", "entry_170x300_jax_cpu.json")
 REF_ORB_170 = os.path.join(REPO, "tests", "data", "entry_orb_170x300_jax_cpu.json")
+# JAX's own final keyframe on the TUM keys under rounding-size perturbations
+# of its frames (tests/torch_parity.py --orb --spread): phase 7a's must lie
+# in [min, max], with no tolerance added
+REF_ORB_SPREAD = os.path.join(REPO, "tests", "data",
+                              "entry_orb_170x300_jax_spread.json")
 REF_MP_170 = os.path.join(REPO, "tests", "data", "mp_170x300_jax_cpu.json")
 REF_OPT_340 = os.path.join(REPO, "tests", "data", "slice_opt_340x600_jax_cpu.json")
 # phase 8: bench_torch.py's JSON line (bench.py's keys, less those of its
@@ -202,6 +227,12 @@ ENTRY_REF_TOL = dict(OPT_REF_TOL, final_psnr=0.8)
 # (ROADMAP.md, Faults)
 ORB_REF_TOL = dict(ENTRY_REF_TOL, final_psnr=1.2)
 BENCH_ATE_CM, BENCH_PSNR = 1.0, 27.5
+# phase 9: the mesh's virtual shards of cuda:0, the iterations of 9b and 9c,
+# and 9d's iterations per optimize call (6b's run)
+MESH_SHARDS, DP_STEPS, SP_ITERS, MESH_ITERS = 4, 5, 6, 30
+# 9c against the one-device compact loop: tests/test_parallel.py:257-266
+# (the shards' gradients are added in another order)
+SP_TOL = {"report": (1e-4, 1e-6), "params": (2e-4, 2e-6)}
 # FP32 operations, counted from the sources (a fused multiply-add counts 2,
 # expf 1) and charged only where the function needs them.  Every live
 # (pixel, entry) pair needs its alpha (blend_common.cuh::entry_alpha): 11
@@ -663,27 +694,31 @@ def check_reference(res, ref_path, tol, label):
           f"{jref['max_overflow']} (tolerances {tol})")
 
 
-def capture_optimize_launches(blend, optimize, first=()):
+def capture_optimize_launches(blend, optimize, first=(), targets=None):
     """Patch the optimize calls and the two blend wrappers that
     ``BlendFunction`` reaches, for one run of the main path.  Per kind of
     call ("local" or "global" compact calls, "final" for the final pass's
     full renders) the latest call (the first, for the kinds in ``first``)
     keeps the inputs of its first K1 residual launch ("fwd") and its first
     K2 launch ("bwd"), detached, not copied; every call's (kind,
-    iterations, wall seconds between synchronizes) is listed.  Returns
-    (captured, calls, restore)."""
+    iterations, wall seconds between synchronizes) is listed.  ``targets``
+    replaces the patched calls: (owner, name, bound arguments -> (kind,
+    iterations)) each.  Returns (captured, calls, restore)."""
     import torch
 
+    if targets is None:
+        targets = ((optimize, "optimize_execute",
+                    lambda b: (b["mode"], b["n_iters"])),
+                   (optimize, "optimize_chain", lambda b: ("final", b["n_iters"])))
     captured, calls, kind = {}, [], [None]
-    orig = (optimize.optimize_execute, optimize.optimize_chain,
-            blend.blend_tiles, blend.blend_bwd)
+    orig = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+    orig_blend = (blend.blend_tiles, blend.blend_bwd)
 
-    def timed(fn, final):
+    def timed(fn, kind_of):
         sig = inspect.signature(fn)
 
         def call(*a, **k):
-            bound = sig.bind(*a, **k).arguments
-            name = "final" if final else bound["mode"]
+            name, n_iters = kind_of(sig.bind(*a, **k).arguments)
             # kind[0] names the call whose launches are kept, if any
             kind[0] = None if name in first and name in captured else name
             if kind[0]:
@@ -692,7 +727,7 @@ def capture_optimize_launches(blend, optimize, first=()):
             t0 = time.perf_counter()
             out = fn(*a, **k)
             torch.cuda.synchronize()
-            calls.append((name, bound["n_iters"], time.perf_counter() - t0))
+            calls.append((name, n_iters, time.perf_counter() - t0))
             kind[0] = None
             return out
         return call
@@ -706,14 +741,15 @@ def capture_optimize_launches(blend, optimize, first=()):
             return fn(*a, **k)
         return call
 
-    optimize.optimize_execute = timed(orig[0], final=False)
-    optimize.optimize_chain = timed(orig[1], final=True)
-    blend.blend_tiles = keep("fwd", orig[2])
-    blend.blend_bwd = keep("bwd", orig[3])
+    for (owner, name, fn), (_, _, kind_of) in zip(orig, targets):
+        setattr(owner, name, timed(fn, kind_of))
+    blend.blend_tiles = keep("fwd", orig_blend[0])
+    blend.blend_bwd = keep("bwd", orig_blend[1])
 
     def restore():
-        (optimize.optimize_execute, optimize.optimize_chain,
-         blend.blend_tiles, blend.blend_bwd) = orig
+        for owner, name, fn in orig:
+            setattr(owner, name, fn)
+        blend.blend_tiles, blend.blend_bwd = orig_blend
     return captured, calls, restore
 
 
@@ -983,8 +1019,17 @@ def phase_7a(work, dev, smi):
     require_launches("phase 7a 170x300", la)
     if res["mapper"].max_overflow != oref["max_overflow"]:
         fail(f"phase 7a: overflow {res['mapper'].max_overflow}")
-    check_entry(torch_parity.summarize_run(save), oref, ORB_REF_TOL,
-                "phase 7a 170x300")
+    summary = torch_parity.summarize_run(save)
+    check_entry(summary, oref, ORB_REF_TOL, "phase 7a 170x300")
+    with open(REF_ORB_SPREAD) as f:
+        spread = json.load(f)
+    if not spread["min"] <= summary["psnr"] <= spread["max"]:
+        fail(f"phase 7a: final keyframe PSNR {summary['psnr']:.4f} outside JAX's "
+             f"own spread [{spread['min']:.4f}, {spread['max']:.4f}] over "
+             f"{len(spread['runs'])} runs")
+    print(f"[phase 7a] final keyframe PSNR {summary['psnr']:.4f} inside JAX's "
+          f"own spread [{spread['min']:.4f}, {spread['max']:.4f}] "
+          f"({len(spread['runs'])} runs, {os.path.basename(REF_ORB_SPREAD)})")
     print(f"[phase 7a] 170x300: tracker {dict(res['tracker'].status)}, "
           f"launches {la}; {time.perf_counter() - t0:.1f} s")
 
@@ -1300,6 +1345,244 @@ def check_segment_sum(mapper, cam, dev):
           f"sums within {rel:.3g} of the largest; {t:.4f} ms")
 
 
+def clone_state(state):
+    import dataclasses
+
+    return type(state)(**{f.name: getattr(state, f.name).clone()
+                          for f in dataclasses.fields(state)})
+
+
+def keep_last_local_call(optimize):
+    """Patch ``optimize.optimize_execute`` to keep the arguments of the
+    latest local call, its map state cloned before the call.  Returns
+    (kept, restore)."""
+    orig = optimize.optimize_execute
+    sig = inspect.signature(orig)
+    kept = {}
+
+    @functools.wraps(orig)   # its signature, for capture_optimize_launches
+    def call(*a, **k):
+        bound = sig.bind(*a, **k).arguments
+        if bound["mode"] == "local":
+            kept.clear()
+            kept.update(bound, state=clone_state(bound["state"]))
+        return orig(*a, **k)
+
+    optimize.optimize_execute = call
+
+    def restore():
+        optimize.optimize_execute = orig
+    return kept, restore
+
+
+def within(got, want, rtol, atol):
+    """The largest of |got - want| - (atol + rtol |want|) (<= 0 passes)."""
+    return float(((got - want).abs() - (atol + rtol * want.abs())).max())
+
+
+def phase_9(mapper, args, cams, kept_local, local_ms, dev, smi):
+    """The multi-device path on MESH_SHARDS virtual shards of ``dev`` with
+    phase 5's map and frames (9a-9d in the module docstring).  Returns
+    (launch counts of 9a-9d, check_inference's result on 9a's shard 0,
+    check_launch's result on 9d's first local launch)."""
+    import numpy as np
+    import torch
+    from rtgslam_torch.config import OptimizationParams
+    from rtgslam_torch.models import optimize
+    from rtgslam_torch.models.gaussian_map import (UNSTABLE, alive_mask,
+                                                   render_inputs)
+    from rtgslam_torch.ops.rasterize import api, blend
+    from rtgslam_torch.parallel import (dp_global_optimize, dp_local_optimize,
+                                        make_mesh, sp_render)
+    from rtgslam_torch.parallel.sp_optimize import sp_optimize_execute
+    from rtgslam_torch.slam import mapper as mapper_mod
+    from rtgslam_torch.slam.run import make_args, run_sequence
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=[dev] * MESH_SHARDS)
+    n = mesh.size
+    st = mapper.settings
+
+    # ---- 9a: the tile-sharded render of the final map ----------------------
+    camera = cams[-1].device_dict(dev)
+    gauss = render_inputs(mapper.state, alive_mask(mapper.state))
+    want = api.render(gauss, camera, st)
+    shard_args, orig = [], blend.blend_tiles
+
+    def keep(*a, **k):
+        shard_args.append(a)
+        return orig(*a, **k)
+
+    blend.blend_tiles = keep
+    try:
+        got, la = counted(lambda: sp_render(gauss, camera, st, mesh))
+    finally:
+        blend.blend_tiles = orig
+    for k in want:
+        if not torch.equal(got[k], want[k]):
+            fail(f"phase 9a: sp_render's {k} differs from render's")
+    if la["blend_fwd"] != n or sum(la.values()) != n:
+        fail(f"phase 9a: launches {la}, not K1 once per shard")
+    inf = check_inference(f"phase 9a sp_render shard 0 of {n}", shard_args[0], smi)
+    ms_sp = cuda_ms(lambda: sp_render(gauss, camera, st, mesh), 10)
+    ms_one = cuda_ms(lambda: api.render(gauss, camera, st), 10)
+    print(f"[phase 9a] sp_render over {n} shards of {dev}: the seven maps, "
+          f"the normal and the overflow bitwise equal to render's; "
+          f"{int(want['overflow'])} overflow; K1 launches {la['blend_fwd']} "
+          f"(tiles {tuple(shard_args[0][2].shape)} per shard); {ms_sp:.3f} ms "
+          f"vs render {ms_one:.3f} ms ({smi})")
+
+    # ---- 9b: the same frame on every shard vs the one-device chain ---------
+    opt = OptimizationParams().extract(args)
+    lrs, weights = mapper._lrs(opt), mapper._weights(opt)
+    rec = mapper.processed_frames[-1]
+    fm = rec["frame_map"]
+    entry = mapper._entry(rec["camera"], fm["color_map"], fm["depth_map"],
+                          fm["normal_map_w"])
+    one = mapper._stack_entries([entry])
+    many = mapper._stack_entries([entry] * n)
+    counts9 = [la]
+    for mode in ("local", "global"):
+        base = clone_state(mapper.state)
+        if mode == "local":      # the final pass fixed every gaussian
+            base.status[alive_mask(base)] = UNSTABLE
+        dp, chain = clone_state(base), clone_state(base)
+        merge = mapper.history_merge_max_weight if mode == "local" else 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "local":
+            _, lb = counted(lambda: dp_local_optimize(
+                dp, *many, DP_STEPS, lrs, weights, st, mesh, False, merge))
+        else:
+            _, lb = counted(lambda: dp_global_optimize(
+                dp, *many, DP_STEPS, lrs, weights, st, mesh, -1.0, False))
+        torch.cuda.synchronize()
+        dp_s = time.perf_counter() - t0
+        optimize.optimize_chain(chain, *one, np.zeros(DP_STEPS, np.int64),
+                                DP_STEPS, lrs, weights, st, mode, -1.0, False,
+                                merge)
+        torch.cuda.synchronize()
+        chain_s = time.perf_counter() - t0 - dp_s
+        for k in optimize.PARAM_KEYS:
+            a, b = getattr(dp, k), getattr(chain, k)
+            if not torch.equal(a, b):
+                fail(f"phase 9b {mode}: {k} differs from the one-device chain "
+                     f"at {int((a != b).sum())} entries (max "
+                     f"{float((a - b).abs().max()):.3g}): the mesh's mean is "
+                     f"not the one-frame gradient")
+        want_conf = chain.confidence if mode == "local" else base.confidence
+        if not torch.equal(dp.confidence, want_conf):
+            fail(f"phase 9b {mode}: the confidence differs")
+        require_launches(f"phase 9b {mode}", lb, KERNELS[1:2] + KERNELS[3:],
+                         DP_STEPS * n)
+        require_launches(f"phase 9b {mode}", lb, KERNELS[2:3], n)   # masks
+        moved = int((dp.features_dc != base.features_dc).any(-1).sum())
+        counts9.append(lb)
+        print(f"[phase 9b] dp_{mode}_optimize, the last frame on {n} shards, "
+              f"{DP_STEPS} iterations at {st.height}x{st.width}: parameters "
+              f"{'and confidence ' if mode == 'local' else ''}bitwise equal to "
+              f"optimize_chain on that frame ({moved} gaussians moved); "
+              f"launches {lb}; {dp_s * 1e3 / DP_STEPS:.2f} ms per iteration "
+              f"vs the chain's {chain_s * 1e3 / DP_STEPS:.2f} (masks "
+              f"included) ({smi})")
+
+    # ---- 9c: the tile-sharded compact loop on phase 5's last local call -----
+    if not kept_local:
+        fail("phase 9c: phase 5 made no local optimize call")
+    call = dict(kept_local, n_iters=SP_ITERS,
+                frame_seq=list(kept_local["frame_seq"])[:SP_ITERS])
+    ref, sp = clone_state(call["state"]), clone_state(call["state"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_r = optimize.optimize_execute(**dict(call, state=ref))
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    got_r, lc = counted(lambda: sp_optimize_execute(**dict(call, state=sp),
+                                                    mesh=mesh))
+    torch.cuda.synchronize()
+    sp_s = time.perf_counter() - t0 - one_s
+    rtol, atol = SP_TOL["report"]
+    for k in optimize.REPORT_KEYS:
+        if not abs(float(got_r[k]) - float(want_r[k])) <= atol + rtol * abs(float(want_r[k])):
+            fail(f"phase 9c: report {k} {float(got_r[k]):.6g} vs "
+                 f"{float(want_r[k]):.6g} (rtol {rtol}, atol {atol})")
+    rtol, atol = SP_TOL["params"]
+    excess = {k: within(getattr(sp, k), getattr(ref, k), rtol, atol)
+              for k in ("xyz", "opacity", "scaling", "features_dc")}
+    for k, e in excess.items():
+        if e > 0:
+            fail(f"phase 9c: {k} beyond rtol {rtol} / atol {atol} of the "
+                 f"one-device loop by {e:.3g}")
+    if not torch.equal(sp.confidence, ref.confidence):
+        fail("phase 9c: the confidence differs from the one-device loop's")
+    # K1's residual mode and K2 on every shard, one reduce of all partials
+    require_launches("phase 9c", lc, KERNELS[1:2] + KERNELS[3:4], SP_ITERS * n)
+    require_launches("phase 9c", lc, KERNELS[4:], SP_ITERS)
+    counts9.append(lc)
+    rep_gap = max(abs(float(got_r[k]) - float(want_r[k]))
+                  for k in optimize.REPORT_KEYS)
+    bitwise = all(torch.equal(getattr(sp, k), getattr(ref, k))
+                  for k in optimize.PARAM_KEYS + ("confidence",))
+    print(f"[phase 9c] sp_optimize_execute over {n} shards on phase 5's last "
+          f"local call (tile rows {tuple(call['tile_rows'].shape)}, lists "
+          f"{tuple(call['lists_orig'].shape)}, pool {call['n_pool']}), "
+          f"{SP_ITERS} iterations: report within {rep_gap:.3g}, parameters "
+          f"within {SP_TOL['params']} (largest excess "
+          f"{max(excess.values()):.3g}), confidence equal; the map "
+          f"{'bitwise equal' if bitwise else 'NOT bitwise equal'} to the "
+          f"one-device loop's; launches {lc}; "
+          f"{sp_s * 1e3 / SP_ITERS:.2f} ms per iteration vs "
+          f"{one_s * 1e3 / SP_ITERS:.2f} on one device ({smi})")
+
+    # ---- 9d: the mapper on the mesh over phase 5's frames -------------------
+    args9 = make_args(st.height, st.width)
+    for k, v in FULL_OVERRIDES.items():
+        setattr(args9, k, v)
+    args9.gaussian_update_iter = MESH_ITERS
+    args9.multi_device = True
+    captured, calls, restore = capture_optimize_launches(
+        blend, None, first=("local",), targets=(
+            (mapper_mod, "dp_local_optimize", lambda b: ("local", b["n_steps"])),
+            (mapper_mod, "dp_global_optimize",
+             lambda b: ("global", b["n_steps"]))))
+    t0 = time.perf_counter()
+    try:
+        res, ld = counted(lambda: run_sequence(args9, copy.deepcopy(cams), dev,
+                                               mesh=mesh))
+    finally:
+        restore()
+    run_s = time.perf_counter() - t0
+    if res["max_overflow"] != 0:
+        fail(f"phase 9d: bin overflow {res['max_overflow']}")
+    if not res["ate_cm"] <= BENCH_ATE_CM:
+        fail(f"phase 9d: ATE {res['ate_cm']:.4f} cm > {BENCH_ATE_CM} cm")
+    if not res["eval"]["psnr"] >= BENCH_PSNR:
+        fail(f"phase 9d: PSNR {res['eval']['psnr']:.3f} < {BENCH_PSNR}")
+    kinds = [k for k, _, _ in calls]
+    if kinds.count("local") < 1 or kinds.count("global") < 1:
+        fail(f"phase 9d: optimize calls on the mesh {calls}, need a local and "
+             f"a windowed global one")
+    iters = sum(it for _, it, _ in calls)
+    require_launches("phase 9d", ld)
+    require_launches("phase 9d", ld, KERNELS[1:2] + KERNELS[3:], iters * n)
+    if set(captured.get("local", {})) != {"fwd", "bwd"}:
+        fail("phase 9d made no local launch of K1 and K2 on the mesh")
+    counts9.append(ld)
+    track, mapping = check_slice(res, f"phase 9d {st.height}x{st.width} on {n} shards")
+    per_it = ", ".join(f"{k} {s_ * 1e3 / it:.2f}" for k, it, s_ in calls)
+    print(f"[phase 9d] mapper with mesh= {n} shards of {dev}, multi_device "
+          f"on, FULL_OVERRIDES, {MESH_ITERS} iterations per call: calls "
+          f"{[(k, it) for k, it, _ in calls]}; ms per iteration on the mesh "
+          f"(masks included) {per_it} vs phase 5's compact local calls "
+          f"{', '.join(f'{x:.2f}' for x in local_ms)}; median tracking "
+          f"{track:.2f} ms, mapping {mapping:.2f} ms per frame; launches {ld}; "
+          f"run {run_s:.1f} s ({smi})")
+    works = check_launch(f"phase 9d first dp-local launch (shard 0 of {n})",
+                         captured["local"]["fwd"], captured["local"]["bwd"], smi)
+    print(f"[phase 9] {time.perf_counter() - t_phase:.1f} s")
+    return add_counts(*counts9), inf, works
+
+
 def main():
     import torch
 
@@ -1421,11 +1704,13 @@ def main():
     cams = make_cameras(FRAMES, 680, 1200)
     print(f"[phase 5] cameras {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    kept_local, unkeep = keep_last_local_call(optimize)
     captured, calls, restore = capture_optimize_launches(blend, optimize)
     blend.reset_launches()
     res = run_sequence(args, copy.deepcopy(cams), dev)
     launches = dict(blend.launches)
     restore()
+    unkeep()
     run_s = time.perf_counter() - t0
     track_ms, map_ms = check_slice(res, "phase 5 680x1200")
     mapper = res["mapper"]
@@ -1490,6 +1775,10 @@ def main():
     print(f"[phase 3b/3e] {time.perf_counter() - t0:.1f} s")
 
     by_phase = {"5": launches}
+    by_phase["9"], inf9, works["mesh"] = phase_9(
+        mapper, args, cams, kept_local,
+        [s_ * 1e3 / n for k, n, s_ in calls if k == "local"], dev, smi)
+    del kept_local
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         phase_6a(work)
         by_phase["6b"], works["global"] = phase_6b(work, cams, dev, smi)
@@ -1519,7 +1808,8 @@ def main():
     src = "rtgslam_torch/csrc/"
     loc = works["local"]
     print(json.dumps({"kernels": [
-        entry("blend_fwd", "blend_fwd.cu", "60", inf, max(err_rand, inf["err"])),
+        entry("blend_fwd", "blend_fwd.cu", "60", inf,
+              max(err_rand, inf["err"], inf9["err"])),
         entry("blend_fwd_residual", "blend_fwd.cu", "60", loc["res"],
               max(err_res, err("res"))),
         entry("blend_fwd_transmission", "blend_fwd.cu", "60", trans,

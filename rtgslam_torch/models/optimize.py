@@ -187,7 +187,8 @@ def _loss_fn_compact(params_c, aux, frame, settings: RasterSettings, hyper):
              if "row_ptr_c" in frame else None)
     out = render_compact(gauss_c, frame["tile_lists_c"], frame["tile_counts_c"],
                          frame, settings, frame["tile_rows"],
-                         frame["tile_origins"], frame["n_tiles_full"], index)
+                         frame["tile_origins"], frame["n_tiles_full"], index,
+                         frame.get("blend_fn"))
     return _total(out, frame, params_c, aux["update_mask"], hyper)
 
 
@@ -217,6 +218,26 @@ def _adam_step(params, grads, m, v, step: int, lrs, update_mask):
     return new_params, new_m, new_v
 
 
+def loss_grads(loss_fn, params):
+    """(d loss / d each parameter group, the detached report) of
+    ``loss_fn`` at ``params``; zeros for a group the loss does not reach."""
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    with torch.enable_grad():
+        loss, report = loss_fn(leaves)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in PARAM_KEYS],
+                                    allow_unused=True)
+    grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+             for k, g in zip(PARAM_KEYS, grads)}
+    return grads, {k: x.detach() for k, x in report.items()}
+
+
+def bump_confidence(confidence, grads, update_mask):
+    """One more optimization for every updated row that the iteration's
+    colour gradient reached (``run_optimize`` :238-240)."""
+    touched = torch.any(grads["features_dc"] != 0, dim=-1) & update_mask
+    return confidence + touched[:, None].to(confidence.dtype)
+
+
 def _iterate(params, confidence, loss_fn, frame_of, frame_seq, n_iters: int,
              lrs, update_mask):
     """The render -> loss -> gradient -> Adam -> confidence loop shared by
@@ -226,17 +247,10 @@ def _iterate(params, confidence, loss_fn, frame_of, frame_seq, n_iters: int,
     m, v = zeros, {k: z.clone() for k, z in zeros.items()}
     report = {k: torch.zeros((), device=confidence.device) for k in REPORT_KEYS}
     for i in range(n_iters):
-        leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-        with torch.enable_grad():
-            loss, report = loss_fn(leaves, frame_of(int(frame_seq[i])))
-            grads = torch.autograd.grad(loss, [leaves[k] for k in PARAM_KEYS],
-                                        allow_unused=True)
-        grads = {k: torch.zeros_like(leaves[k]) if g is None else g
-                 for k, g in zip(PARAM_KEYS, grads)}
-        params, m, v = _adam_step(leaves, grads, m, v, i, lrs, update_mask)
-        touched = torch.any(grads["features_dc"] != 0, dim=-1) & update_mask
-        confidence = confidence + touched[:, None].to(confidence.dtype)
-        report = {k: x.detach() for k, x in report.items()}
+        frame = frame_of(int(frame_seq[i]))
+        grads, report = loss_grads(lambda p: loss_fn(p, frame), params)
+        params, m, v = _adam_step(params, grads, m, v, i, lrs, update_mask)
+        confidence = bump_confidence(confidence, grads, update_mask)
     return params, confidence, report
 
 
@@ -444,21 +458,30 @@ def optimize_execute(state: MapState, colors, depths, normals, w2cs, Ks,
                      pool_rows: torch.Tensor, n_pool: int,
                      tile_rows: torch.Tensor, frame_seq: Sequence[int],
                      n_iters: int, lrs, weights, settings: RasterSettings,
-                     mode: str, max_weight: float, Ktc: int):
+                     mode: str, max_weight: float, Ktc: int,
+                     blend_for=None):
     """Stage 2 of the compact path (``optimize_execute`` :450): the loop
     over the :func:`compact_problem` of the pool rows ``pool_rows`` and the
     live-first tiles ``tile_rows``, then the local history merge.  Updates
-    ``state``; returns the last report."""
+    ``state``; returns the last report.  ``blend_for(lists, counts,
+    origins, n_rows)``, called once per frame on its compact lists over the
+    ``n_rows`` pool rows, returns the blend that frame's renders use in
+    place of :func:`blend.blend_tiles_fused` (``parallel/sp_optimize.py``)."""
     hist = map_ops.capture_history(state)
     cp = compact_problem(state, colors, depths, normals, w2cs, Ks, camposes,
                          rmasks, lists_orig, counts, pool_rows, n_pool,
                          tile_rows, weights, hist, settings, mode, Ktc)
     aux = {"update_mask": cp.update, "row_valid": cp.row_valid}
     n_tiles_full = counts.shape[1]
+    fr = cp.frames
+    blends = [None if blend_for is None else
+              blend_for(fr["tile_lists_c"][f], fr["tile_counts_c"][f],
+                        fr["tile_origins"][f], cp.rows.shape[0])
+              for f in range(fr["tile_rows"].shape[0])]
 
     def frame_of(f):
-        return dict({k: x[f] for k, x in cp.frames.items()},
-                    n_tiles_full=n_tiles_full)
+        return dict({k: x[f] for k, x in fr.items()},
+                    n_tiles_full=n_tiles_full, blend_fn=blends[f])
 
     params_c, conf_c, report = _iterate(
         cp.params, state.confidence[cp.rows],

@@ -252,8 +252,8 @@ def render_compact(gaussians_c: Dict[str, torch.Tensor],
                    camera: Dict[str, torch.Tensor], settings: RasterSettings,
                    tile_rows: torch.Tensor, tile_origins: torch.Tensor,
                    n_tiles_full: int,
-                   index: Optional[blend.RowIndex] = None
-                   ) -> Dict[str, torch.Tensor]:
+                   index: Optional[blend.RowIndex] = None,
+                   blend_fn=None) -> Dict[str, torch.Tensor]:
     """Differentiable render over a compact working set (``render_compact``
     :483): the optimize loop's render.
 
@@ -266,12 +266,13 @@ def render_compact(gaussians_c: Dict[str, torch.Tensor],
     what the full-grid blend gives a count-0 tile.  Index maps hold
     compact row indices.  ``index``: the lists' :func:`blend.row_index`,
     which the backward's reduce kernel reads (on CUDA, built per backward
-    when None)."""
+    when None).  ``blend_fn`` replaces :func:`blend.blend_tiles_fused` (same
+    arguments; the tile-sharded blend of ``parallel/sp_optimize.py``)."""
     H, W = settings.height, settings.width
     feat = compact_feature_rows(gaussians_c, camera, settings)
     ident = torch.arange(feat.shape[0] - 1, dtype=torch.int32,
                          device=feat.device)
-    tiles = blend.blend_tiles_fused(
+    tiles = (blend_fn or blend.blend_tiles_fused)(
         feat, ident, tile_lists_c, tile_counts_c, tile_origins,
         settings.opaque_threshold, settings.T_threshold, index)
     rows = tile_rows.long()

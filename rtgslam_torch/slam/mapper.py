@@ -18,6 +18,11 @@ Port of ``rtgslam_tpu/slam/mapper.py``.  Per mapped frame (reference
 Optimization frames (every ``gaussian_update_frame``-th) run these as
 separate steps; the others run ``map_ops.frame_chain``.  The gradient passes
 run through ``models/optimize.py`` (the blend kernels K1 and K2).
+
+With a mesh (:func:`mapper_mesh`, or the ``mesh`` argument) the standalone
+renders go tile-sharded (``parallel/sp_render.py``) and the local and
+windowed global passes frame-parallel (``parallel/sharded.py``), as the JAX
+mapper's ``multi_device`` branches do; the final pass stays on one device.
 """
 
 from __future__ import annotations
@@ -36,6 +41,9 @@ from ..models.gaussian_map import (STABLE, UNSTABLE, GaussianMapConfig,
                                    MapState, alive_mask, load_numpy_dict,
                                    render_inputs, to_numpy_dict)
 from ..ops.rasterize import RasterSettings, render
+from ..parallel import (dp_global_optimize, dp_local_optimize, make_mesh,
+                        sp_render)
+from ..parallel.mesh import Mesh
 from ..utils import perf
 from ..utils import ply as ply_utils
 from ..utils.general import require_device
@@ -59,20 +67,28 @@ def generator_priorities(device, seed: int = 2024) -> PrioritySource:
     return draw
 
 
+def mapper_mesh(args, device: torch.device) -> Optional[Mesh]:
+    """The JAX mapper's rule (mapper.py:113-116): with ``multi_device`` set
+    and more than one CUDA device visible, a mesh over all of them; else
+    None, and the one-device path."""
+    if bool(getattr(args, "multi_device", False)) and device.type == "cuda" \
+            and torch.cuda.device_count() > 1:
+        return make_mesh()
+    return None
+
+
 class Mapper:
-    """The mapper on ``device`` (CUDA unless the caller asks for the CPU)."""
+    """The mapper on ``device`` (CUDA unless the caller asks for the CPU).
+    ``mesh`` gives the sharded paths a mesh of the caller's choosing (the
+    tests' and chip_smoke's virtual shards of one device); by default it is
+    :func:`mapper_mesh`'s."""
 
     def __init__(self, args, device="cuda",
-                 priority_source: Optional[PrioritySource] = None):
+                 priority_source: Optional[PrioritySource] = None,
+                 mesh: Optional[Mesh] = None):
         self.args = args
         self.device = setup_device(require_device(device))
-        # the JAX mapper builds its mesh only over more than one device
-        # (mapper.py:113); on one device multi_device runs this same path
-        if bool(getattr(args, "multi_device", False)) \
-                and self.device.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "multi_device=True over more than one CUDA device is not "
-                "ported yet (the JAX package's parallel/)")
+        self.mesh = mesh if mesh is not None else mapper_mesh(args, self.device)
         self.config = GaussianMapConfig.from_args(args)
         self.state = MapState.create(self.config, self.device)
         self.priorities = priority_source or generator_priorities(self.device)
@@ -169,9 +185,13 @@ class Mapper:
     def _render(self, camera: Dict[str, torch.Tensor],
                 settings: Optional[RasterSettings] = None):
         """Render every alive gaussian (the JAX ``_render(.., "global")``),
-        with the mapper's settings unless ``settings`` overrides them."""
-        out = render(render_inputs(self.state, alive_mask(self.state)),
-                     camera, settings or self.settings)
+        with the mapper's settings unless ``settings`` overrides them;
+        tile-sharded over the mesh when there is one (:179-184)."""
+        gauss = render_inputs(self.state, alive_mask(self.state))
+        if self.mesh is not None:
+            out = sp_render(gauss, camera, settings or self.settings, self.mesh)
+        else:
+            out = render(gauss, camera, settings or self.settings)
         self._note_overflow(out)
         return out
 
@@ -329,6 +349,14 @@ class Mapper:
         return {"color": color, "depth": depth[..., 0], "normal": normal,
                 "w2c": cam["w2c"], "K": cam["K"], "campos": cam["campos"]}
 
+    def _mesh_entries(self, entries, n_actual: int):
+        """One entry per shard: ``entries`` cycled as the JAX mapper does
+        (``entries[len % n_actual]``), then the first ``mesh.size``."""
+        entries = list(entries)
+        while len(entries) < self.mesh.size:
+            entries.append(entries[len(entries) % n_actual])
+        return entries[:self.mesh.size]
+
     def _iteration_frames(self, n_actual: int, n_iters: int) -> np.ndarray:
         """Random frame per iteration, the newest in the late half
         (mapper.py:604-605)."""
@@ -361,7 +389,9 @@ class Mapper:
     def local_optimize(self, frame: Camera, opt):
         """Optimize the unstable pool over the frame memory, then merge it
         with its history (``local_optimize`` :567).  The memory is padded to
-        ``memory_length`` by repeating the newest frame."""
+        ``memory_length`` by repeating the newest frame.  On a mesh each
+        shard takes one of the newest entries of that padded memory, which
+        is cycled when it holds fewer entries than shards (:585-603)."""
         entries = [self._entry(rec["camera"], rec["frame_map"]["color_map"],
                                rec["frame_map"]["depth_map"],
                                rec["frame_map"]["normal_map_w"])
@@ -370,10 +400,18 @@ class Mapper:
         entries += [entries[-1]] * (self.memory_length - n_actual)
         n_iters = self.gaussian_update_iter
         with perf.span("map.local_optimize"):
-            report = self._optimize(
-                entries, self._iteration_frames(n_actual, n_iters), n_iters,
-                self._lrs(opt), self._weights(opt), "local", -1.0,
-                self.history_merge_max_weight)
+            if self.mesh is not None:
+                entries = self._mesh_entries(entries[-self.mesh.size:], n_actual)
+                report = {"total": dp_local_optimize(
+                    self.state, *self._stack_entries(entries), n_iters,
+                    self._lrs(opt), self._weights(opt), self.settings,
+                    self.mesh, self.dataset_type == "Scannetpp",
+                    self.history_merge_max_weight)}
+            else:
+                report = self._optimize(
+                    entries, self._iteration_frames(n_actual, n_iters),
+                    n_iters, self._lrs(opt), self._weights(opt), "local",
+                    -1.0, self.history_merge_max_weight)
         self.train_report(self.get_total_iter, report)
         return report
 
@@ -417,13 +455,20 @@ class Mapper:
         if not is_final:
             entries = [make_entry(kf) for kf in selected]
             n_actual = len(entries)
-            entries += [entries[-1]] * (self.global_keyframe_num - n_actual)
             n_iters = self.gaussian_update_iter
+            ratio = float(getattr(self.args, "global_opt_top_ratio", 0.4))
             with perf.span("map.global_optimize"):
+                if self.mesh is not None:
+                    # one keyframe per shard, cycled (:679-692)
+                    entries = self._mesh_entries(entries, n_actual)
+                    return {"total": dp_global_optimize(
+                        self.state, *self._stack_entries(entries), n_iters,
+                        lrs, weights, self.settings, self.mesh, ratio,
+                        self.dataset_type == "Scannetpp")}
+                entries += [entries[-1]] * (self.global_keyframe_num - n_actual)
                 return self._optimize(
                     entries, self._iteration_frames(n_actual, n_iters), n_iters,
-                    lrs, weights, "global",
-                    float(getattr(self.args, "global_opt_top_ratio", 0.4)), 0.0)
+                    lrs, weights, "global", ratio, 0.0)
         report = None
         for kf_idx in self.rng.permutation(select_keyframe_num):
             n_iters = self.final_global_iter

@@ -68,9 +68,11 @@ def make_args(H: int, W: int, env_overrides: bool = False):
 
 
 def run_sequence(args, cams: List[Camera], device="cuda",
-                 priority_source: Optional[PrioritySource] = None) -> Dict:
+                 priority_source: Optional[PrioritySource] = None,
+                 mesh=None) -> Dict:
     """Track and map ``cams`` in order on ``device`` (CUDA unless the caller
-    asks for the CPU), then finish the run.
+    asks for the CPU), then finish the run; ``mesh`` goes to the
+    :class:`Mapper`.
 
     Returns poses [N, 4, 4], ate_cm, the last keyframe's eval metrics
     (psnr, depth_l1_cm, ...), the final stable / unstable counts, the
@@ -81,7 +83,7 @@ def run_sequence(args, cams: List[Camera], device="cuda",
     device = require_device(device)
     opt = OptimizationParams().extract(args)
     tracker = Tracker(args, device)
-    mapper = Mapper(args, device, priority_source)
+    mapper = Mapper(args, device, priority_source, mesh)
     track_ms, map_ms, counts = [], [], []
     for i, cam in enumerate(cams):
         sync(device)

@@ -337,10 +337,11 @@ def test_threefry_replays_jax_random():
 def test_mapper_refuses_gradient_iterations(monkeypatch):
     """Gradient iterations and the frozen binning of
     ``optimize_freeze_binning`` construct; ``multi_device`` constructs on one
-    device, as the JAX mapper runs it there, and is refused over more than
-    one CUDA device (the JAX package's mesh is not ported); the default
-    device is CUDA, which raises where there is none."""
-    from rtgslam_torch.slam.mapper import Mapper
+    device with no mesh, as the JAX mapper runs it there, and over more than
+    one CUDA device takes a mesh over all of them (building it allocates
+    nothing); the default device is CUDA, which raises where there is
+    none."""
+    from rtgslam_torch.slam.mapper import Mapper, mapper_mesh
 
     args = read_config(os.path.join(REPO, "configs", "base.yaml"))
     args.map_capacity, args.temp_capacity = 1024, 256
@@ -352,8 +353,15 @@ def test_mapper_refuses_gradient_iterations(monkeypatch):
     with pytest.raises(SystemExit, match="no CUDA device"):
         Mapper(args)
     args.multi_device = True
-    Mapper(args, "cpu")
+    assert Mapper(args, "cpu").mesh is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi_device"):
-        Mapper(args)
+    assert Mapper(args, "cpu").mesh is None
+    mesh = mapper_mesh(args, torch.device("cuda"))
+    assert mesh.devices == (torch.device("cuda:0"), torch.device("cuda:1"))
+    assert mesh.axis == "dp"
+    args.multi_device = False
+    assert mapper_mesh(args, torch.device("cuda")) is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    args.multi_device = True
+    assert mapper_mesh(args, torch.device("cuda")) is None

@@ -15,6 +15,9 @@
   perturbation of the frames, and its final keyframe sits closer to JAX
   than either perturbed JAX run, inside their range.  No step was found
   that differs in its semantics.
+- ``tests/data/entry_orb_170x300_jax_spread.json``: JAX's final keyframe
+  unperturbed and under eight perturbation seeds (``torch_parity.py --orb
+  --spread``); the port's lies inside that range.
 """
 
 import copy
@@ -33,6 +36,7 @@ import torch_parity as tp  # noqa: E402
 
 torch.set_num_threads(1)
 EVIDENCE = os.path.join(REPO, "tests", "data", "orb_trace_170x300.json")
+SPREAD = os.path.join(REPO, "tests", "data", "entry_orb_170x300_jax_spread.json")
 JAX_PERTURBED = ("jax_perturb_1", "jax_perturb_2")
 
 
@@ -156,3 +160,30 @@ def test_orb_later_passes_within_jax_spread(evidence):
     for port_psnr in (rows[-1]["psnr_last"][1],
                       evidence["port_3_threads"][-1]["psnr_last"][1]):
         assert min(jax_runs) <= port_psnr <= max(jax_runs), (port_psnr, jax_runs)
+
+
+def test_orb_final_keyframe_inside_jax_spread(evidence):
+    """JAX's own final keyframe over nine runs (unperturbed, then seeds 1-8
+    of a 2^-22 colour perturbation) spans [min, max]; the port's CPU runs
+    (29.912 at 1 thread, and at 3) lie inside it with no tolerance added.
+    Seed 0 is the JAX reference's run and seeds 1 and 2 repeat the trace's
+    perturbed runs bit for bit; the file lists every run's command."""
+    with open(SPREAD) as f:
+        spread = json.load(f)
+    runs = spread["runs"]
+    assert [r["seed"] for r in runs] == list(range(9))
+    assert "--spread" in spread["command"]
+    for r in runs:
+        assert f"--trace-side jax --perturb {r['seed']} " in r["command"] + " "
+    psnr = [r["final_psnr"] for r in runs]
+    assert (spread["min"], spread["max"]) == (min(psnr), max(psnr))
+    with open(tp.reference_name(170, 300, orb=True)) as f:
+        assert runs[0]["final_psnr"] == json.load(f)["psnr"]
+    for seed in (1, 2):
+        assert runs[seed]["final_psnr"] == \
+            evidence[f"jax_perturb_{seed}"][-1]["psnr_last"][1]
+    port = evidence["port"][-1]["psnr_last"][1]
+    assert port == pytest.approx(29.912, abs=5e-4)
+    for p in (port, evidence["port_3_threads"][-1]["psnr_last"][1]):
+        assert spread["min"] <= p <= spread["max"], (p, spread["min"],
+                                                     spread["max"])

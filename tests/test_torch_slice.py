@@ -125,7 +125,8 @@ def test_opt_slice_gaussian_counts_and_overflow(opt_runs):
 def test_port_runs_without_jax(tmp_path):
     """In a fresh interpreter where importing JAX or the JAX package fails,
     the port's modules, its four entry points and its three scripts import,
-    the slice runs on the CPU, ``slam_torch.py`` / ``metric_torch.py`` /
+    the slice runs on the CPU, so does the multi-device dry run on two CPU
+    shards, ``slam_torch.py`` / ``metric_torch.py`` /
     ``slam_mp_torch.py`` run a 3-frame scene written to disk (the scene from
     ``scripts/make_synthetic_torch.py``), ``bench_torch.py`` runs 3 frames
     with its spans on, and ``scripts/eval_ate_torch.py`` /
@@ -153,8 +154,14 @@ def test_port_runs_without_jax(tmp_path):
                   "rtgslam_torch.utils.image_io", "rtgslam_torch.utils.monitor",
                   "rtgslam_torch.utils.ply", "rtgslam_torch.utils.traj",
                   "rtgslam_torch.utils.perf", "rtgslam_torch.utils.sh",
-                  "rtgslam_torch.ops.rasterize", "rtgslam_torch.ops.segment"):
+                  "rtgslam_torch.ops.rasterize", "rtgslam_torch.ops.segment",
+                  "rtgslam_torch.parallel", "rtgslam_torch.parallel.mesh",
+                  "rtgslam_torch.parallel.sharded",
+                  "rtgslam_torch.parallel.sp_optimize",
+                  "rtgslam_torch.parallel.sp_render"):
             importlib.import_module(m)
+        from rtgslam_torch.parallel import dryrun_multichip
+        dryrun_multichip(2, device="cpu")
         import os, runpy
         def script(name, *argv):
             sys.argv = [name, *argv]

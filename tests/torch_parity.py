@@ -48,6 +48,22 @@ ones (the commands are in that file):
     python tests/torch_parity.py --orb --trace --height 170 --width 300 --threads 1 --out T
     python tests/torch_parity.py --orb --trace-side jax --perturb 1 --height 170 --width 300 --out T/jax_p1
     python tests/torch_parity.py --compare T/jax T/jax_p1/jax --table F --name jax_perturb_1
+
+``--parallel`` writes the JAX-on-CPU reference of the multi-device path on
+a 4-device virtual CPU mesh: ``dp_optimize_step``, ``dp_local_optimize``,
+``dp_global_optimize`` and ``sp_optimize_execute`` with a distinct frame
+per shard (:func:`parallel_case`), and with ``--mapper`` the slice loop
+with ``multi_device`` on (:func:`parallel_mapper_args`):
+
+    python tests/torch_parity.py --parallel
+    python tests/torch_parity.py --parallel --mapper --frames 6 --height 96 --width 128
+
+``--orb --spread SEED...`` runs ``--trace-side jax --perturb SEED`` for
+each seed (seed 0: unperturbed), two at a time, into ``--out``/jax_pSEED
+(a trace already there is read, not run again), and writes the final
+keyframe's PSNR of each, the spread of JAX's own result:
+
+    python tests/torch_parity.py --orb --spread 0 1 2 3 4 5 6 7 8 --out T --table tests/data/entry_orb_170x300_jax_spread.json
 """
 
 from __future__ import annotations
@@ -269,6 +285,202 @@ def mappers_with_same_map(base_args, H, W, n=300, capacity=1024):
         {f: np.asarray(getattr(jm.state, f)) for f in MapState.__dataclass_fields__})
     pm._ensure_settings(cam)
     return args, cam, jm, pm
+
+
+# ---------------------------------------------------------------------------
+# the multi-device path (--parallel)
+# ---------------------------------------------------------------------------
+
+PARALLEL_SHARDS = 4
+PARALLEL_JSON = os.path.join(REPO, "tests", "data", "parallel_tiny_jax_cpu.json")
+PARALLEL_MAPPER_JSON = os.path.join(REPO, "tests", "data",
+                                    "parallel_mapper_{H}x{W}_jax_cpu.json")
+PARALLEL_LR = 1e-3
+PARALLEL_WEIGHTS = {"color_weight": 0.8, "depth_weight": 1.0,
+                    "normal_weight": 0.1, "add_depth_thres": 0.1}
+PARALLEL_STEPS = 3
+# sp_optimize_execute: 6 iterations over the four frames
+PARALLEL_SEQ = (0, 1, 2, 3, 1, 2)
+# the rows every call may move (the tiny problem's 64 gaussians) and the
+# fields the reference keeps of them
+PARALLEL_ROWS = 64
+PARALLEL_FIELDS = ("xyz", "features_dc", "opacity", "scaling", "rotation",
+                   "confidence")
+
+
+def parallel_case(H: int = 32, W: int = 32):
+    """(state fields, stacked frames) as numpy: the tiny problem of
+    ``parallel/sharded.py::_tiny_problem`` (both packages build it from the
+    same draws) with rows 0-31 stable and 32-63 unstable, random
+    confidences, flat discs (so the depth hits pass the normal gate), and
+    per frame its own random colour and depth (seed 7; the first four
+    columns without depth) and a camera moved 5 cm further along x."""
+    from rtgslam_torch.models.gaussian_map import STABLE
+    from rtgslam_torch.parallel.sharded import _tiny_problem
+
+    state, frames, _ = _tiny_problem(PARALLEL_SHARDS, H, W)
+    st = state.to_numpy()
+    fr = {k: v.numpy().copy() for k, v in frames.items()}
+    rng = np.random.default_rng(7)
+    st["status"][:32] = STABLE
+    st["confidence"][:PARALLEL_ROWS, 0] = rng.integers(0, 6, PARALLEL_ROWS)
+    st["scaling"][:PARALLEL_ROWS, 2] = np.log(np.float32(0.02))
+    fr["color"] = rng.uniform(0.1, 0.9, fr["color"].shape).astype(np.float32)
+    fr["depth"] = rng.uniform(1.8, 2.6, fr["depth"].shape).astype(np.float32)
+    fr["depth"][:, :, :4] = 0.0
+    shift = np.float32(0.05) * np.arange(PARALLEL_SHARDS, dtype=np.float32)
+    fr["w2c"][:, 0, 3] = shift
+    fr["campos"][:, 0] = -shift
+    return st, fr
+
+
+def parallel_mapper_args(base_args, H: int, W: int):
+    """The mapper fixture's config: ``base_args`` (tests/conftest.py's) at
+    the slice test's capacities (no overflow), frame-to-model ICP, the
+    entry runs' keyframe thresholds, 5 iterations per call and a stable
+    threshold that two calls can pass, so frames 0 and 1 run local passes
+    and frame 3 the windowed global pass; ``multi_device`` on."""
+    import copy
+
+    args = copy.copy(base_args)
+    args.tile_capacity, args.block_capacity = 1024, 4096
+    args.use_gt_pose, args.icp_use_model_depth = False, True
+    for k, v in _KEYFRAMES.items():
+        setattr(args, k, v)
+    args.gaussian_update_iter = 5
+    args.stable_confidence_thres = 8
+    args.final_global_iter = 2
+    args.multi_device = True
+    return args
+
+
+def conftest_args():
+    """tests/conftest.py::base_args, for the script (no pytest)."""
+    sys.path.insert(0, os.path.join(REPO))
+    from rtgslam_tpu.config import read_config
+
+    args = read_config(os.path.join(REPO, "configs", "base.yaml"))
+    for k, v in dict(map_capacity=8192, temp_capacity=2048, block_capacity=512,
+                     tile_capacity=128, uniform_sample_num=1500,
+                     memory_length=3, gaussian_update_iter=10,
+                     gaussian_update_frame=2, max_depth=8.0,
+                     stable_confidence_thres=30, save_step=10_000).items():
+        setattr(args, k, v)
+    return args
+
+
+def _bucket(n, lo, hi):
+    b = lo
+    while b < n:
+        b *= 2
+    return min(b, hi)
+
+
+def parallel_main(a):
+    """Write the ``--parallel`` reference (JAX on a 4-device CPU mesh)."""
+    import dataclasses
+    import time
+
+    import jax
+    import jax.numpy as jnp
+    from rtgslam_tpu.models import optimize as jopt
+    from rtgslam_tpu.models.gaussian_map import alive_mask, unstable_mask
+    from rtgslam_tpu.parallel import (dp_global_optimize, dp_local_optimize,
+                                      dp_optimize_step, make_mesh)
+    from rtgslam_tpu.parallel.sharded import _tiny_problem
+    from rtgslam_tpu.parallel.sp_optimize import sp_optimize_execute
+
+    assert len(jax.devices()) == PARALLEL_SHARDS, jax.devices()
+    t0 = time.perf_counter()
+    mesh = make_mesh(PARALLEL_SHARDS)
+    base, frames, settings = _tiny_problem(PARALLEL_SHARDS)
+    st, fr = parallel_case()
+    state = base.replace(**{f.name: jnp.asarray(st[f.name])
+                            for f in dataclasses.fields(base)})
+    window = tuple(jnp.asarray(fr[k]) for k in
+                   ("color", "depth", "normal", "w2c", "K", "campos"))
+    lrs = {k: jnp.float32(PARALLEL_LR) for k in jopt.PARAM_KEYS}
+    weights = {k: jnp.float32(v) for k, v in PARALLEL_WEIGHTS.items()}
+
+    def rows(s):
+        return {f: np.asarray(getattr(s, f))[:PARALLEL_ROWS].tolist()
+                for f in PARALLEL_FIELDS}
+
+    out = {}
+    hyper = dict(weights, hist_opacity=state.opacity,
+                 hist_scaling=state.scaling, hist_xyz=state.xyz,
+                 hist_rotation_raw=state.rotation)
+    batch = frames._replace(**{k: jnp.asarray(fr[k]) for k in fr})
+    s, loss = dp_optimize_step(state, batch, alive_mask(state),
+                               unstable_mask(state), lrs, hyper, settings,
+                               mesh, n_steps=PARALLEL_STEPS)
+    out["dp_optimize_step"] = {"total": float(loss), "rows": rows(s)}
+    s, loss = dp_local_optimize(state, *window, PARALLEL_STEPS, lrs, weights,
+                                settings, mesh, max_weight=0.5)
+    out["dp_local_optimize"] = {"total": float(loss), "rows": rows(s)}
+    s, loss = dp_global_optimize(state, *window, PARALLEL_STEPS, lrs, weights,
+                                 settings, mesh, sample_ratio=0.4)
+    out["dp_global_optimize"] = {"total": float(loss), "rows": rows(s)}
+    (rmasks, _, lists_orig, counts, pool_order, tile_order, n_pool, cnt_max,
+     n_live) = jopt.optimize_prepare(state, *window, settings=settings,
+                                     mode="local", sample_ratio=-1.0,
+                                     mask_depth_positive=False)
+    Ac = _bucket(int(n_pool), 64, pool_order.shape[0])
+    Ktc = _bucket(int(cnt_max), 64, lists_orig.shape[-1])
+    Tc = _bucket(max(int(n_live), PARALLEL_SHARDS), PARALLEL_SHARDS,
+                 counts.shape[-1])
+    s, report = sp_optimize_execute(
+        state, *window, rmasks, lists_orig, counts, pool_order[:Ac], n_pool,
+        tile_order[:, :Tc], jnp.asarray(PARALLEL_SEQ, jnp.int32),
+        len(PARALLEL_SEQ), lrs, weights, settings, mode="local",
+        max_weight=0.5, Ac=Ac, Ktc=Ktc, Tc=Tc, mesh=mesh)
+    out["sp_optimize_execute"] = {
+        "report": {k: float(v) for k, v in report.items()}, "rows": rows(s),
+        "n_live_tiles": int(n_live), "Tc": Tc}
+    ref = {"command": "python tests/torch_parity.py --parallel",
+           "mesh": f"{PARALLEL_SHARDS} virtual CPU devices "
+                   "(--xla_force_host_platform_device_count)",
+           "jax_version": jax.__version__, "steps": PARALLEL_STEPS,
+           "seq": list(PARALLEL_SEQ), "lr": PARALLEL_LR,
+           "weights": PARALLEL_WEIGHTS, "max_weight": 0.5, "sample_ratio": 0.4,
+           "cpu_seconds": time.perf_counter() - t0, **out}
+    with open(a.out or PARALLEL_JSON, "w") as f:
+        json.dump(ref, f, indent=1)
+    print(json.dumps({k: v.get("total", v.get("report")) for k, v in out.items()}))
+
+
+def parallel_mapper_main(a):
+    """Write the ``--parallel --mapper`` reference: the slice loop of
+    :func:`run_jax_sequence` with ``multi_device`` on a 4-device CPU mesh."""
+    import time
+
+    import jax
+    from rtgslam_tpu.data.synthetic import make_cameras
+
+    assert len(jax.devices()) == PARALLEL_SHARDS, jax.devices()
+    t0 = time.perf_counter()
+    H, W = a.height, a.width
+    args = parallel_mapper_args(conftest_args(), H, W)
+    res = run_jax_sequence(args, make_cameras(n_frames=a.frames, H=H, W=W))
+    ref = {
+        "command": (f"python tests/torch_parity.py --parallel --mapper "
+                    f"--frames {a.frames} --height {H} --width {W}"),
+        "config": "tests/conftest.py::base_args with parallel_mapper_args",
+        "mesh": f"{PARALLEL_SHARDS} virtual CPU devices",
+        "frames": a.frames, "height": H, "width": W,
+        "jax_version": jax.__version__,
+        "ate_cm": res["ate_cm"], "psnr": res["eval"]["psnr"],
+        "depth_l1_cm": res["eval"]["depth_l1_cm"], "eval_uid": res["eval_uid"],
+        "n_stable": res["n_stable"], "n_unstable": res["n_unstable"],
+        "counts": res["counts"], "max_overflow": res["max_overflow"],
+        "poses": res["poses"].tolist(),
+        "cpu_seconds": time.perf_counter() - t0,
+    }
+    with open(a.out or PARALLEL_MAPPER_JSON.format(H=H, W=W), "w") as f:
+        json.dump(ref, f, indent=1)
+    print(json.dumps({k: ref[k] for k in ("ate_cm", "psnr", "depth_l1_cm",
+                                          "n_stable", "n_unstable",
+                                          "max_overflow", "cpu_seconds")}))
 
 
 def run_jax_sequence(args, cams):
@@ -671,6 +883,54 @@ def compare_main(a):
             json.dump(tables, f, indent=1)
 
 
+def spread_main(a):
+    """``--spread``: the final keyframe's PSNR of JAX's traced run under
+    each perturbation seed, written to ``--table``."""
+    import time
+
+    procs, runs = [], []
+    for seed in a.spread:
+        out = os.path.join(a.out, f"jax_p{seed}")
+        cmd = (f"python tests/torch_parity.py --orb --height {a.height} "
+               f"--width {a.width} --trace-side jax --perturb {seed} "
+               f"--out T/jax_p{seed}")
+        runs.append((seed, out, cmd))
+        if os.path.exists(os.path.join(out, "jax.json")):
+            continue
+        while sum(p.poll() is None for p in procs) >= 2:
+            time.sleep(5)
+        os.makedirs(out, exist_ok=True)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--orb", "--height",
+             str(a.height), "--width", str(a.width), "--trace-side", "jax",
+             "--perturb", str(seed), "--out", out],
+            env=dict(os.environ, JAX_PLATFORMS="cpu"),
+            stdout=open(os.path.join(out, "log"), "w"),
+            stderr=subprocess.STDOUT))
+    if any(p.wait() for p in procs):
+        raise SystemExit(f"a traced run failed: see {a.out}/jax_p*/log")
+    rows = []
+    for seed, out, cmd in runs:
+        meta, _ = _read_trace(os.path.join(out, "jax"))
+        final = meta["passes"][-1]
+        assert final["kind"] == "final", final["kind"]
+        rows.append({"seed": seed, "final_psnr": final["psnr"][-1],
+                     "command": cmd})
+    psnr = [r["final_psnr"] for r in rows]
+    spread = {"what": "the final keyframe's PSNR of JAX's slam.py on the TUM "
+                      "keys (tests/data/entry_orb_170x300_jax_cpu.json's "
+                      "scene and config), its frames' colour scaled by "
+                      "1 + u 2^-22 (u from the seed; seed 0 unperturbed)",
+              "host": "CPU (JAX_PLATFORMS=cpu)",
+              "command": ("python tests/torch_parity.py --orb --spread "
+                          + " ".join(str(r["seed"]) for r in rows)
+                          + f" --out T --table {os.path.relpath(a.table, REPO)}"),
+              "runs": rows, "min": min(psnr), "max": max(psnr)}
+    with open(a.table, "w") as f:
+        json.dump(spread, f, indent=1)
+    print(json.dumps({k: spread[k] for k in ("min", "max")}))
+
+
 def trace_main(a):
     """Run both traced sides as child processes at once, then print the
     per-pass table as JSON lines (and write it to ``--out``/table.json)."""
@@ -730,10 +990,33 @@ def main():
                     help="with --compare: also store the table in this JSON file")
     ap.add_argument("--name", default=None,
                     help="with --table: the table's key in that file")
+    ap.add_argument("--spread", type=int, nargs="+", default=None,
+                    metavar="SEED",
+                    help="with --orb: JAX's traced run under each perturbation "
+                         "seed (0: none); the final keyframe's PSNR of each "
+                         "to --table")
+    ap.add_argument("--parallel", action="store_true",
+                    help="reference of parallel/ on a 4-device CPU mesh")
+    ap.add_argument("--mapper", action="store_true",
+                    help="with --parallel: the slice loop with multi_device")
     ap.add_argument("--out", default=None)
     a = ap.parse_args()
+    if a.parallel:
+        # the virtual devices must be asked for before JAX starts
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                                   f" --xla_force_host_platform_device_count="
+                                   f"{PARALLEL_SHARDS}")
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
+        sys.path.insert(0, REPO)
+        return (parallel_mapper_main if a.mapper else parallel_main)(a)
     if a.compare:
         return compare_main(a)
+    if a.spread:
+        if not (a.out and a.table):
+            ap.error("--spread needs --out and --table")
+        return spread_main(a)
     if a.trace_side:
         if not a.out:
             ap.error("--trace-side needs --out")
