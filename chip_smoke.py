@@ -52,7 +52,19 @@ Phases (any failure exits non-zero, and nothing falls back to the CPU):
       mapper, renders the last keyframe within 0.01 dB of the in-run eval;
       metric_torch writes a CSV row per frame and the mean; K1's residual
       mode, K2 and the reduce against their twins on the global call's own
-      launches, K2 with the reduce twice, bitwise equal;
+      launches, K2 with the reduce twice, bitwise equal (full frames);
+  10. the row-band path (slam.py's banded loop) through slam_torch.py,
+      after 6b: 10a room_mid.yaml's keys (two 170x600 bands, tracking at
+      170x300) on phase 4c's 12 frames written to disk, slam_torch.py +
+      metric_torch.py against the JAX package's run on the CPU,
+      tests/data/entry_bands_340x600_jax_cpu.json (check_entry at
+      ENTRY_REF_TOL; the banded final PSNR at its final_psnr tolerance);
+      on 6b's 680x1200 scene, 10b room_full.yaml's own keys (eight 85x1200
+      bands, tracking at 170x300): ATE <= 1 cm, banded final PSNR >= 27.5,
+      a gradient call, every kernel launched, the first local call's K1
+      residual, K2 and reduce launches against their twins, the overflow
+      of the band, feedback and final-eval renders reported; 10c the same
+      with BAND_FIT_CAPACITIES: overflow 0 in every render;
   7a. the TUM operating point (configs/tum_base.yaml's tracking and mapping
       keys, tests/torch_parity.py::TUM_KEYS: the staged tracking path through
       the native pose backend, loop detection, the depth filter, a gradient
@@ -103,11 +115,12 @@ Phases (any failure exits non-zero, and nothing falls back to the CPU):
       iterations: overflow 0, ATE <= 1 cm, PSNR >= 27.5, a local and a
       windowed global call on the mesh, every kernel launched, the first
       local launch of K1's residual mode and K2 against their twins.
-Phases 7b and 7c run before 7a; phase 9 runs after 3b/3e and before 6a.
-Each of phases 5, 6b, 7a, 7b, 7c, 8 and 9 resets the launch counts just before
-its runs and reads them just after, and fails if a kernel its path runs was
-not launched there.
-For every launch measured in 3b, 3e, 6b, 7a-7c, 8 and 9 the script prints the live
+Phases 7b and 7c run before 7a; phase 9 runs after 3b/3e and before 6a;
+phase 10 after 6b.
+Each of phases 5, 6b, 7a, 7b, 7c, 8, 9 and 10 resets the launch counts just
+before its runs and reads them just after, and fails if a kernel its path
+runs was not launched there.
+For every launch measured in 3b, 3e, 6b, 7a-7c, 8, 9 and 10 the script prints the live
 (pixel, entry) pairs its inputs need and how many of them have a non-zero
 alpha, the least time the card could take for that work (the bound: FP32
 operations over 67 TFLOP/s or bytes over 3.35 TB/s, whichever is larger;
@@ -118,6 +131,7 @@ time of the reduce's row index.
 The line before the last is the kernel report, the last the device line.
 """
 
+import contextlib
 import copy
 import csv
 import functools
@@ -142,6 +156,9 @@ REF_ORB_SPREAD = os.path.join(REPO, "tests", "data",
                               "entry_orb_170x300_jax_spread.json")
 REF_MP_170 = os.path.join(REPO, "tests", "data", "mp_170x300_jax_cpu.json")
 REF_OPT_340 = os.path.join(REPO, "tests", "data", "slice_opt_340x600_jax_cpu.json")
+# phase 10a: slam.py + metric.py with room_mid.yaml's keys (2 row bands,
+# tracking at stride 2) at 340x600 on the CPU
+REF_BANDS_340 = os.path.join(REPO, "tests", "data", "entry_bands_340x600_jax_cpu.json")
 # phase 8: bench_torch.py's JSON line (bench.py's keys, less those of its
 # TPU link) and its spans under RTG_PERF=1
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
@@ -174,9 +191,20 @@ KERNELS = ("blend_fwd", "blend_fwd_residual", "blend_fwd_transmission",
 # keyframe thresholds of the 170x300 reference make every optimization
 # frame a keyframe, and a gaussian optimized in both calls before frame 11
 # (confidence up to 60) passes the stable threshold, so frame 11 runs the
-# windowed global optimization
+# windowed global optimization; whole frames (room_full.yaml's frame_bands
+# 8 is phase 10b's)
 FULL_OVERRIDES = {"keyframe_trans_thes": 0.003, "keyframe_theta_thes": 0.25,
-                  "stable_confidence_thres": 40, "save_step": 6}
+                  "stable_confidence_thres": 40, "save_step": 6,
+                  "frame_bands": 1}
+# phase 10c: capacities that fit room_full.yaml's banded density.  Each
+# 85x1200 band samples 50,000 of its 102,000 pixels, eight times a whole
+# frame's density, and the feedback render at 170x300 bins the whole map
+# into tiles of 64x64 frame pixels: with the shipped capacities (max_visible
+# 131,072, block 4,096, tile 1,024) both drop entries (10b, as JAX's own
+# room_mid.yaml run drops 361 at 340x600).  A capacity changes no render
+# while nothing overflows
+BAND_FIT_CAPACITIES = {"max_visible": 262144, "block_capacity": 131072,
+                       "tile_capacity": 8192}
 # the reloaded final checkpoint against the in-run eval of the last keyframe
 RELOAD_PSNR_DB = 0.01
 FRAMES = 12
@@ -841,8 +869,6 @@ def phase_6b(work, cams, dev, smi):
     from rtgslam_torch.config import DatasetParams, read_config
     from rtgslam_torch.data.camera import load_camera
     from rtgslam_torch.data.dataset import Dataset
-    from rtgslam_torch.data.synthetic import (default_intrinsics, write_frame,
-                                              write_intrinsics)
     from rtgslam_torch.models import optimize
     from rtgslam_torch.ops.rasterize import blend
     from rtgslam_torch.slam.eval import eval_frame
@@ -850,10 +876,7 @@ def phase_6b(work, cams, dev, smi):
 
     t0 = time.perf_counter()
     H, W = cams[0].image_height, cams[0].image_width
-    scene = os.path.join(work, "scene_full")
-    write_intrinsics(scene, default_intrinsics(H, W))
-    for cam in cams:
-        write_frame(scene, cam.uid, cam.image, cam.depth, cam.pose_gt)
+    scene = write_cams(os.path.join(work, "scene_full"), cams)
     save = os.path.join(work, "out_full")
     cfg = torch_parity.write_child_config(
         os.path.join(work, "entry_full.yaml"), ROOM_FULL_YAML, scene, save,
@@ -938,6 +961,169 @@ def phase_6b(work, cams, dev, smi):
     works = check_launch("phase 6b global", captured6["global"]["fwd"],
                          captured6["global"]["bwd"], smi)
     return launches6, works
+
+
+def write_cams(scene, cams):
+    """In-memory frames on disk in the "ours" layout, as ``write_scene``
+    writes them (no ray casting again)."""
+    from rtgslam_torch.data.synthetic import (default_intrinsics, write_frame,
+                                              write_intrinsics)
+
+    write_intrinsics(scene, default_intrinsics(cams[0].image_height,
+                                               cams[0].image_width))
+    for cam in cams:
+        write_frame(scene, cam.uid, cam.image, cam.depth, cam.pose_gt)
+    return scene
+
+
+def banded_run(cfg, metric=True, priority_source=None):
+    """The entry points on a banded config, their stdout kept: (slam_torch's
+    result, metric_torch's or None, the banded line's numbers)."""
+    import metric_torch
+    import slam_torch
+    import torch_parity
+
+    os.chdir(REPO)
+    log = torch_parity.Tee()
+    with contextlib.redirect_stdout(log):
+        res = slam_torch.main(["--config", cfg], priority_source=priority_source)
+    met = metric_torch.main(["--config", cfg]) if metric else None
+    return res, met, torch_parity.banded_eval(log.text())
+
+
+def band_timings(save, res):
+    """Per-frame tracking and mapping ms of a run (performance.json) and
+    its gradient frames'."""
+    with open(os.path.join(save, "performance.json")) as f:
+        perf = json.load(f)["samples"]
+    grad = sorted(set(res["mapper"].optimize_frames_ids) - {0})
+    plain = [m for i, m in enumerate(perf["mapping"]) if i and i not in grad]
+    return {"tracking_ms": f"{median(perf['tracking'][1:]) * 1e3:.2f}",
+            "mapping_ms": (f"{median(plain) * 1e3:.2f}" if plain
+                           else "none (a gradient pass every frame)"),
+            "gradient_frames_ms": {i: round(perf["mapping"][i] * 1e3, 1)
+                                   for i in grad}}
+
+
+def track_shape(res):
+    """The size the run tracked at: its last tracked depth map's."""
+    h, w = res["tracker"]._prev_depth.shape[:2]
+    return f"{h}x{w}"
+
+
+def phase_10(work, cams340, smi):
+    """The row-band path (slam.py's banded loop) through the entry points:
+    10a room_mid.yaml's keys at 340x600 against the JAX reference; on phase
+    6b's 680x1200 scene, 10b room_full.yaml's own keys (ATE, PSNR, the
+    first local call's launches against their twins; its overflow
+    reported) and 10c the same with BAND_FIT_CAPACITIES (overflow 0 in
+    every render).  Returns (the launch counts of the three runs,
+    check_launch's result)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_parity
+    from rtgslam_torch.config import read_config
+    from rtgslam_torch.models import optimize
+    from rtgslam_torch.ops.rasterize import blend
+    from rtgslam_torch.utils import threefry
+
+    # ---- 10a: 340x600, 2 bands, tracking at stride 2, vs JAX -------------
+    t0 = time.perf_counter()
+    with open(REF_BANDS_340) as f:
+        bref = json.load(f)
+    scene = write_cams(os.path.join(work, "scene340"), cams340)
+    save = os.path.join(work, "out_bands340")
+    cfg = torch_parity.write_child_config(
+        os.path.join(work, "bands340.yaml"), torch_parity.reference_parent(bref),
+        scene, save, bref["overrides"])
+    (res, _, banded), la = counted(
+        lambda: banded_run(cfg, priority_source=threefry.jax_priorities()))
+    require_launches("phase 10a", la)
+    got = torch_parity.summarize_run(save)
+    check_entry(got, bref, ENTRY_REF_TOL, "phase 10a")
+    for k, tol in (("banded_psnr", ENTRY_REF_TOL["final_psnr"]),
+                   ("banded_depth_l1_cm", ENTRY_REF_TOL["depth_l1_cm"] + 0.01)):
+        if not abs(banded[k] - bref[k]) <= tol:
+            fail(f"phase 10a: {k} {banded[k]} vs JAX {bref[k]} (tol {tol})")
+    mapper = res["mapper"]
+    tm = band_timings(save, res)
+    print(f"[phase 10a] {bref['height']}x{bref['width']} x {bref['frames']}, "
+          f"{bref['overrides']['frame_bands']} bands of "
+          f"{mapper.settings.height}x{mapper.settings.width}, tracking at "
+          f"{track_shape(res)}: banded "
+          f"final PSNR {banded['banded_psnr']} vs JAX {bref['banded_psnr']}, "
+          f"depth L1 {banded['banded_depth_l1_cm']} vs "
+          f"{bref['banded_depth_l1_cm']} cm; overflow {mapper.max_overflow} "
+          f"(JAX, lifecycle renders only: {bref['max_overflow']}), the "
+          f"feedback renders' {mapper.max_feedback_overflow}; median tracking "
+          f"{tm['tracking_ms']} ms, mapping {tm['mapping_ms']} ms "
+          f"(frames without a gradient pass), gradient frames "
+          f"{tm['gradient_frames_ms']}; "
+          f"launches {la}; {time.perf_counter() - t0:.1f} s ({smi})")
+
+    # ---- 10b / 10c: room_full.yaml's keys on 6b's 680x1200 scene ----------
+    counts, works = [la], None
+    for part, overrides in (("10b", {}), ("10c", BAND_FIT_CAPACITIES)):
+        t0 = time.perf_counter()
+        save = os.path.join(work, f"out_bands_full_{part}")
+        cfg = torch_parity.write_child_config(
+            os.path.join(work, f"bands_full_{part}.yaml"), ROOM_FULL_YAML,
+            os.path.join(work, "scene_full"), save, overrides)
+        args = read_config(cfg)
+        captured, calls, restore = capture_optimize_launches(
+            blend, optimize, first=("local",))
+        blend.reset_launches()
+        try:
+            res, _, banded = banded_run(cfg, metric=False)
+        finally:
+            lb = dict(blend.launches)
+            restore()
+        counts.append(lb)
+        mapper, ev = res["mapper"], res["final_eval"]
+        n_bands = int(args.frame_bands)
+        if banded["banded_n"] != n_bands or n_bands != 8:
+            fail(f"phase {part}: {banded['banded_n']} bands, room_full.yaml has "
+                 f"{n_bands}")
+        overflow = (mapper.max_overflow, mapper.max_feedback_overflow,
+                    ev["bin_overflow"])
+        if overrides and any(overflow):
+            fail(f"phase {part}: bin overflow (band renders, feedback renders, "
+                 f"final eval) {overflow}")
+        if not res["ate_cm"] <= BENCH_ATE_CM:
+            fail(f"phase {part}: ATE {res['ate_cm']:.4f} cm > {BENCH_ATE_CM} cm")
+        if not ev["psnr"] >= BENCH_PSNR:
+            fail(f"phase {part}: banded final PSNR {ev['psnr']:.3f} < {BENCH_PSNR}")
+        iters = sum(n for _, n, _ in calls)
+        if iters < 1:
+            fail(f"phase {part}: no gradient call (calls {calls})")
+        require_launches(f"phase {part}", lb)
+        require_launches(f"phase {part}", lb, KERNELS[1:2] + KERNELS[3:], iters)
+        if set(captured.get("local", {})) != {"fwd", "bwd"}:
+            fail(f"phase {part} made no local optimize launch of K1 and K2")
+        tm = band_timings(save, res)
+        st = mapper.settings
+        per_kind = {}
+        for kind, n, sec in calls:
+            per_kind.setdefault(kind, []).append(round(sec * 1e3 / n, 2))
+        print(f"[phase {part}] room_full.yaml{', ' + str(overrides) if overrides else ''}: "
+              f"{len(tm['gradient_frames_ms']) + 1} gradient frames of "
+              f"{len(res['tracker'].pose_es)}, {n_bands} bands of "
+              f"{st.height}x{st.width} ({-(-st.height // 16)}x{-(-st.width // 16)} "
+              f"tiles), tracking at {track_shape(res)}; ATE {res['ate_cm']:.4f} "
+              f"cm, banded final PSNR {ev['psnr']:.3f} (printed "
+              f"{banded['banded_psnr']}), depth L1 {ev['depth_l1_cm']:.4f} cm, "
+              f"overflow (band renders, feedback renders, final eval) "
+              f"{overflow}, gaussians "
+              f"{mapper.get_stable_num + mapper.get_unstable_num}; median "
+              f"tracking {tm['tracking_ms']} ms, mapping {tm['mapping_ms']} ms "
+              f"(frames without a gradient pass), gradient frames "
+              f"{tm['gradient_frames_ms']}; optimize calls "
+              f"{[(k, n) for k, n, _ in calls]}, ms per iteration {per_kind}; "
+              f"launches {lb}; {time.perf_counter() - t0:.1f} s ({smi})")
+        if works is None:
+            works = check_launch(
+                f"phase {part} first local launch ({st.height}x{st.width} band)",
+                captured["local"]["fwd"], captured["local"]["bwd"], smi)
+    return add_counts(*counts), works
 
 
 def require_launches(label, launches, kernels=KERNELS, need=1):
@@ -1690,7 +1876,8 @@ def main():
 
     # ---- phase 4c: the loop with optimization at 340x600 -------------------
     t0 = time.perf_counter()
-    res = run_sequence(make_args(340, 600), make_cameras(FRAMES, 340, 600), dev,
+    cams340 = make_cameras(FRAMES, 340, 600)
+    res = run_sequence(make_args(340, 600), copy.deepcopy(cams340), dev,
                        threefry.jax_priorities())
     check_slice(res, "phase 4c 340x600 optimize")
     check_reference(res, REF_OPT_340, OPT_REF_TOL, "phase 4c")
@@ -1782,6 +1969,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         phase_6a(work)
         by_phase["6b"], works["global"] = phase_6b(work, cams, dev, smi)
+        by_phase["10"], works["band"] = phase_10(work, cams340, smi)
         by_phase["7b"] = phase_7b(work, dev, smi)
         by_phase["7c"], works["frozen"] = phase_7c(mapper, args, smi)
         by_phase["7a"], works["tum"] = phase_7a(work, dev, smi)

@@ -50,7 +50,10 @@ class Camera:
     image: Optional[np.ndarray]  # [H, W, 3] float32 in [0,1]
     depth: Optional[np.ndarray]  # [H, W, 1] float32 (metres)
     image_name: str = ""
-    # None = principal point at the image centre
+    # None = principal point at the image centre.  Given values are kept
+    # as they are, zero and negative ones included: a row band of a frame
+    # (data/bands.py) is the same camera with cy shifted by the band's
+    # first row, which lands at or below zero for the lower bands.
     cx: Optional[float] = None
     cy: Optional[float] = None
     timestamp: float = 0.0
@@ -91,6 +94,14 @@ class Camera:
         cx = self.cx if self.cx is not None else w / 2
         cy = self.cy if self.cy is not None else h / 2
         return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], dtype=np.float32)
+
+    def get_uv(self, xyz_w: np.ndarray) -> np.ndarray:
+        """World points [N, 3] -> integer pixel coordinates [N, 2]
+        (``get_uv`` :99; truncated toward zero, as the JAX package does)."""
+        w2c = self.w2c
+        xyz_c = xyz_w @ w2c[:3, :3].T + w2c[:3, 3]
+        uv = xyz_c @ self.intrinsic.T
+        return (uv[:, :2] / uv[:, 2:]).astype(np.int64)
 
     def device_dict(self, device="cpu") -> dict:
         """w2c [4,4], K [3,3] and campos [3] as float32 tensors."""

@@ -40,7 +40,11 @@ def _gaussian_window(size: int, sigma: float, device) -> torch.Tensor:
 
 
 def ssim(img: torch.Tensor, gt: torch.Tensor, window_size: int = 11) -> torch.Tensor:
-    """SSIM over [H, W, C] images in [0, 1]."""
+    """SSIM over [H, W, C] images in [0, 1]; NaN for an empty image, as the
+    JAX package's mean over no pixels (MS-SSIM's coarsest scales of a row
+    band under 16 rows)."""
+    if img.numel() == 0:
+        return torch.tensor(float("nan"), device=img.device)
     C = img.shape[-1]
     kernel = _gaussian_window(window_size, 1.5, img.device)[None, None].repeat(C, 1, 1, 1)
 

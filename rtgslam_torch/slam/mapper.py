@@ -135,8 +135,11 @@ class Mapper:
         self.frame_map: Dict[str, torch.Tensor] = {}
         self._cached_render = None
         self._cached_render_key = None
-        # run-wide high-water mark of render bin overflow (all renders)
+        # run-wide high-water mark of render bin overflow: every render at
+        # the mapper's raster, and apart from them the row-band step's
+        # feedback renders at the tracker's (slam/run.py)
         self.max_overflow = 0
+        self.max_feedback_overflow = 0
 
         # TensorBoard scalars in single-process mode (``tb_writer`` :131,
         # reference mapper.py:928-931,968-980); none where
@@ -183,16 +186,23 @@ class Mapper:
         self.max_overflow = max(self.max_overflow, int(out["overflow"]))
 
     def _render(self, camera: Dict[str, torch.Tensor],
-                settings: Optional[RasterSettings] = None):
+                settings: Optional[RasterSettings] = None,
+                feedback: bool = False):
         """Render every alive gaussian (the JAX ``_render(.., "global")``),
         with the mapper's settings unless ``settings`` overrides them;
-        tile-sharded over the mesh when there is one (:179-184)."""
+        tile-sharded over the mesh when there is one (:179-184).  A
+        ``feedback`` render (the tracker's model at its own raster) counts
+        its overflow in ``max_feedback_overflow``, not ``max_overflow``."""
         gauss = render_inputs(self.state, alive_mask(self.state))
         if self.mesh is not None:
             out = sp_render(gauss, camera, settings or self.settings, self.mesh)
         else:
             out = render(gauss, camera, settings or self.settings)
-        self._note_overflow(out)
+        if feedback:
+            self.max_feedback_overflow = max(self.max_feedback_overflow,
+                                             int(out["overflow"]))
+        else:
+            self._note_overflow(out)
         return out
 
     def get_render_output(self, frame: Camera):

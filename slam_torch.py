@@ -15,10 +15,13 @@ The device is CUDA unless ``--device cpu`` asks for the CPU; with no GPU
 and no such flag the run stops.  ``RTG_PERF=1`` times the stages' host
 spans (``rtgslam_torch/utils/perf.py``); ``RTG_TRACE=<dir>`` writes a
 ``torch.profiler`` trace of the run there.  Each stage's clock is read after a device
-synchronize.  A config's ``frame_bands`` is not ported (row bands served a
-TPU worker's dispatch limit): frames run whole.  Run from the repository
-root: a config's relative ``parent:`` is read relative to the working
-directory.
+synchronize.  A config's ``frame_bands`` N > 1 (or ``--bands N``) runs
+``slam.py``'s row-band path (``rtgslam_torch/slam/run.py::track_and_map_banded``):
+each frame is tracked once on a copy downsampled by ``band_track_stride``,
+then mapped as N row bands, and the final keyframe is scored band by band
+(``[EVAL] final keyframe (banded xN)``); H must be a multiple of N.  Run
+from the repository root: a config's relative ``parent:`` is read relative
+to the working directory.
 """
 
 import os
@@ -32,6 +35,9 @@ def parse_args(argv=None):
     parser.add_argument("--config", type=str, default="configs/replica/room0.yaml")
     parser.add_argument("--frames", type=int, default=-1,
                         help="override frame_num (quick runs)")
+    parser.add_argument("--bands", type=int, default=0,
+                        help="override frame_bands: N > 1 maps each frame "
+                             "as N row bands")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain PyTorch "
                              "versions of the kernels")
@@ -53,6 +59,8 @@ def main(argv=None, priority_source=None):
     args = read_config(cli.config)
     if cli.frames != -1:
         args.frame_num = cli.frames
+    if cli.bands:
+        args.frame_bands = cli.bands
     stdout = sys.stdout
     safe_state(getattr(args, "quiet", False))
     try:
@@ -70,14 +78,13 @@ def _run(args, device, priority_source):
     from rtgslam_torch.data.loader import FrameLoader
     from rtgslam_torch.slam.eval import eval_frame
     from rtgslam_torch.slam.mapper import Mapper
+    from rtgslam_torch.slam.run import eval_banded, track_and_map_banded
     from rtgslam_torch.slam.tracker import Tracker
     from rtgslam_torch.utils.general import create_workspace, sync
     from rtgslam_torch.utils.monitor import Recorder
 
     n_bands = int(getattr(args, "frame_bands", 1))
-    if n_bands > 1:
-        print(f"[LOG] frame_bands {n_bands}: row bands are not ported, "
-              "frames run whole")
+    track_settings = None
     recorder = Recorder(device.index or 0,
                         record_mem=getattr(args, "record_mem", False))
     opt = OptimizationParams().extract(args)
@@ -95,27 +102,34 @@ def _run(args, device, priority_source):
     try:
         for frame_id, frame in enumerate(loader):
             print(f"========== curr frame is: {frame_id} ==========")
-            sync(device)
-            start = time.perf_counter()
-            frame_map = tracker.map_preprocess(frame, frame_id)
-            tracker.tracking(frame, frame_map)
-            sync(device)
-            map_start = time.perf_counter()
-            tracker_time = map_start - start
-            recorder.update_mean("tracking", tracker_time, 1)
+            if n_bands > 1:
+                eval_cam, track_settings, tracker_time, mapper_time = \
+                    track_and_map_banded(args, tracker, mapper, frame,
+                                         frame_id, opt, track_settings)
+                recorder.update_mean("tracking", tracker_time, 1)
+            else:
+                sync(device)
+                start = time.perf_counter()
+                frame_map = tracker.map_preprocess(frame, frame_id)
+                tracker.tracking(frame, frame_map)
+                sync(device)
+                map_start = time.perf_counter()
+                tracker_time = map_start - start
+                recorder.update_mean("tracking", tracker_time, 1)
 
-            mapper.update_poses(tracker.get_new_poses())
-            mapper.mapping(frame, frame_map, frame_id, opt)
-            mapper.get_render_output(frame)
-            tracker.update_last_status(
-                frame,
-                mapper.model_map["render_depth"],
-                mapper.frame_map["depth_map"],
-                mapper.model_map["render_normal"],
-                mapper.frame_map["normal_map_w"],
-            )
-            sync(device)
-            mapper_time = time.perf_counter() - map_start
+                mapper.update_poses(tracker.get_new_poses())
+                mapper.mapping(frame, frame_map, frame_id, opt)
+                mapper.get_render_output(frame)
+                tracker.update_last_status(
+                    frame,
+                    mapper.model_map["render_depth"],
+                    mapper.frame_map["depth_map"],
+                    mapper.model_map["render_normal"],
+                    mapper.frame_map["normal_map_w"],
+                )
+                sync(device)
+                mapper_time = time.perf_counter() - map_start
+                eval_cam = frame
             recorder.update_mean("mapping", mapper_time, 1)
             if recorder.record_mem:
                 recorder.watch_memory()
@@ -123,7 +137,7 @@ def _run(args, device, priority_source):
 
             if (mapper.time + 1) % mapper.save_step == 0 or mapper.time == 0:
                 metrics = eval_frame(
-                    mapper, frame, eval_dir,
+                    mapper, eval_cam, eval_dir,
                     min_depth=args.min_depth, max_depth=args.max_depth,
                     save_picture=True)
                 print(f"[EVAL] frame {frame_id}: psnr {metrics['psnr']:.2f} "
@@ -144,18 +158,28 @@ def _run(args, device, priority_source):
         kf = mapper.keyframe_list[-1]["frame"]
         kf_full = load_camera(dataset_params, kf.uid, frame_infos[kf.uid])
         kf_full.update(kf.R, kf.T)
-        final_eval = eval_frame(mapper, kf_full, eval_dir,
-                                min_depth=args.min_depth, max_depth=args.max_depth,
-                                save_picture=True)
         final_uid = kf.uid
-        print(f"[EVAL] final keyframe {kf.uid}: psnr {final_eval['psnr']:.2f} "
-              f"depthL1 {final_eval['depth_l1_cm']:.2f}cm")
+        scoring = dict(save_path=eval_dir, min_depth=args.min_depth,
+                       max_depth=args.max_depth, save_picture=True)
+        if n_bands > 1:
+            # each band writes frame_<uid>.json over the last, as in JAX
+            final_eval = eval_banded(mapper, kf_full, n_bands, **scoring)
+            print(f"[EVAL] final keyframe (banded x{n_bands}): "
+                  f"psnr {final_eval['psnr']:.2f} "
+                  f"depthL1 {final_eval['depth_l1_cm']:.2f}cm")
+        else:
+            final_eval = eval_frame(mapper, kf_full, **scoring)
+            print(f"[EVAL] final keyframe {kf.uid}: psnr {final_eval['psnr']:.2f} "
+                  f"depthL1 {final_eval['depth_l1_cm']:.2f}cm")
     mapper.save_model(save_data=True)
     ate = tracker.save_traj(args.save_path)
     fps = recorder.cal_fps()
     recorder.save(args.save_path)
     print(f"[LOG] ATE RMSE: {ate:.3f} cm  mapping FPS: {fps:.2f}  "
           f"max bin_overflow: {mapper.max_overflow}")
+    if n_bands > 1:
+        print(f"[LOG] feedback renders (tracking size) max bin_overflow: "
+              f"{mapper.max_feedback_overflow}")
 
     if getattr(args, "pcd_densify", False):
         from rtgslam_torch.models.densify import save_densified_ply

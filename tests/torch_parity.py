@@ -20,6 +20,16 @@ repository root, summarized by :func:`summarize_run`:
     JAX_PLATFORMS=cpu python tests/torch_parity.py --entry --frames 6 --height 96 --width 128
     JAX_PLATFORMS=cpu python tests/torch_parity.py --entry --frames 12 --height 170 --width 300
 
+``--bands N`` runs the row-band path (``frame_bands`` N; ``BAND_ENTRY``:
+at 96x128 the child of ``room.yaml`` above tracking at stride 1, at
+340x600 a child of ``configs/synthetic/room_mid.yaml`` tracking at stride
+2; ``--track-stride S`` replaces the stride).  Its summary adds the banded
+final eval's PSNR and depth L1, read from the run's ``[EVAL] final
+keyframe (banded xN)`` line (:func:`banded_eval`):
+
+    JAX_PLATFORMS=cpu python tests/torch_parity.py --entry --bands 2 --frames 6 --height 96 --width 128
+    JAX_PLATFORMS=cpu python tests/torch_parity.py --entry --bands 2 --frames 12 --height 340 --width 600
+
 ``--orb`` adds the TUM operating point's tracking and mapping keys
 (``TUM_KEYS``: the pose backend, the depth filter, an optimization pass
 every 4th frame) to that child config, so ``slam.py`` tracks through the
@@ -69,6 +79,7 @@ keyframe's PSNR of each, the spread of JAX's own result:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import os
@@ -85,6 +96,7 @@ REF_JSON = os.path.join(REPO, "tests", "data", "slice_170x300_jax_cpu.json")
 REF_OPT_JSON = os.path.join(REPO, "tests", "data",
                             "slice_opt_170x300_jax_cpu.json")
 ROOM_YAML = os.path.join(REPO, "configs", "synthetic", "room.yaml")
+ROOM_MID_YAML = os.path.join(REPO, "configs", "synthetic", "room_mid.yaml")
 
 
 def slice_reference(H: int, W: int, optimize: bool) -> str:
@@ -124,15 +136,81 @@ MP_KEYS = dict(sync_tracker2mapper_method="strict",
                sync_tracker2mapper_frames=1, tracker_max_fps=1000)
 
 
-def entry_overrides(H: int, W: int, orb: bool = False, mp: bool = False) -> dict:
-    """The child config's overrides of an entry-point run at H x W."""
+# the row-band entry runs' parent config and overrides, by frame size:
+# 340x600 room_mid.yaml's own keys (tracking at stride 2, 170x300) with the
+# keyframe thresholds that put the windowed global pass (over band
+# cameras) on the path; 96x128 the whole-frame run's keys, tracking at
+# stride 1: at stride 2 (48x64) the ICP turns Adam's rounding-level steps
+# into pose gaps of ~7e-3 by frame 1 (ROADMAP.md §3, F5)
+BAND_ENTRY = {
+    (96, 128): (ROOM_YAML, dict(ENTRY_OVERRIDES[(96, 128)], band_track_stride=1)),
+    (340, 600): (ROOM_MID_YAML, dict(_KEYFRAMES, band_track_stride=2)),
+}
+
+
+def entry_parent(H: int, W: int, bands: int = 1) -> str:
+    """The parent config of an entry-point run at H x W."""
+    return BAND_ENTRY[(H, W)][0] if bands > 1 else ROOM_YAML
+
+
+def entry_overrides(H: int, W: int, orb: bool = False, mp: bool = False,
+                    bands: int = 1, track_stride: int = 0) -> dict:
+    """The child config's overrides of an entry-point run at H x W; with
+    ``bands`` > 1, ``BAND_ENTRY``'s and ``frame_bands``
+    (``track_stride`` > 0 replaces the tracking stride)."""
+    if bands > 1:
+        out = dict(BAND_ENTRY[(H, W)][1], frame_bands=bands)
+        if track_stride:
+            out["band_track_stride"] = track_stride
+        return out
     return dict(ENTRY_OVERRIDES[(H, W)], **(TUM_KEYS if orb else {}),
                 **(MP_KEYS if mp else {}))
 
 
-def reference_name(H: int, W: int, orb: bool = False, mp: bool = False) -> str:
-    kind = "mp" if mp else ("entry_orb" if orb else "entry")
+def reference_name(H: int, W: int, orb: bool = False, mp: bool = False,
+                   bands: int = 1) -> str:
+    kind = ("mp" if mp else "entry_orb" if orb else
+            "entry_bands" if bands > 1 else "entry")
     return os.path.join(REPO, "tests", "data", f"{kind}_{H}x{W}_jax_cpu.json")
+
+
+_BANDED = re.compile(r"\[EVAL\] final keyframe \(banded x(\d+)\): psnr "
+                     r"([-\d.]+) depthL1 ([-\d.]+)cm")
+
+
+def reference_parent(ref: dict) -> str:
+    """The parent config an entry reference's child config names (absolute;
+    references written before ``parent`` was recorded used room.yaml)."""
+    return os.path.join(REPO, ref.get("parent", "configs/synthetic/room.yaml"))
+
+
+class Tee:
+    """A stdout that also keeps what was written (for
+    ``contextlib.redirect_stdout``): the banded final eval is read from a
+    run's printed line on both sides."""
+
+    def __init__(self, stream=None):
+        self.stream = stream or sys.stdout
+        self.parts = []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def banded_eval(log: str) -> dict:
+    """The banded final eval of a run's stdout (``slam.py`` and
+    ``slam_torch.py`` print the same line): its band count, PSNR and depth
+    L1 as printed, to 0.01."""
+    (n, psnr, depth), = _BANDED.findall(log)
+    return {"banded_n": int(n), "banded_psnr": float(psnr),
+            "banded_depth_l1_cm": float(depth)}
 # left out of the file-set comparisons: matplotlib's plots
 PLOTS = ("ate.png", "traj_xy.jpg")
 
@@ -483,34 +561,96 @@ def parallel_mapper_main(a):
                                           "max_overflow", "cpu_seconds")}))
 
 
+def _jax_banded_step(args, tracker, mapper, frame, frame_id, opt,
+                     track_settings):
+    """slam.py:71-112, the banded per-frame step, as slam.py runs it.
+    Returns the track settings and the feedback render's overflow."""
+    import jax.numpy as jnp
+    from rtgslam_tpu.data.bands import downsample_camera, split_bands
+    from rtgslam_tpu.ops.rasterize.api import RasterSettings
+    from rtgslam_tpu.slam.tracker import preprocess_and_lift
+
+    n_bands = int(args.frame_bands)
+    track_cam = downsample_camera(frame, int(getattr(args, "band_track_stride",
+                                                     n_bands)))
+    if track_settings is None:
+        track_settings = RasterSettings.from_args(
+            args, track_cam.image_height, track_cam.image_width)
+    frame_map = tracker.map_preprocess(track_cam, frame_id)
+    tracker.tracking(track_cam, frame_map)
+    frame.update(track_cam.R, track_cam.T)
+    mapper.update_poses(tracker.get_new_poses())
+    for bcam in split_bands(frame, n_bands, rotate=frame_id):
+        bfm = preprocess_and_lift(
+            jnp.asarray(bcam.depth, jnp.float32),
+            jnp.asarray(bcam.image, jnp.float32),
+            jnp.asarray(bcam.intrinsic),
+            jnp.asarray(bcam.c2w, jnp.float32),
+            args.min_depth, args.max_depth,
+            tracker.invalid_confidence_thresh, tracker.depth_filter)
+        bfm["time"] = frame_id
+        mapper.mapping(bcam, bfm, frame_id, opt)
+        mapper.time += 1
+    mapper.time -= 1
+    out = mapper._render(track_cam.device_dict(), "global",
+                         settings=track_settings)
+    mapper._set_model_map(out)
+    tracker.update_last_status(
+        track_cam, mapper.model_map["render_depth"], frame_map["depth_map"],
+        mapper.model_map["render_normal"], frame_map["normal_map_w"])
+    return track_settings, int(out["overflow"])
+
+
+def _jax_eval_banded(mapper, cam, n_bands):
+    """slam.py:169-186's banded final eval, unrounded."""
+    import math
+
+    from rtgslam_tpu.data.bands import split_bands
+    from rtgslam_tpu.slam.eval import eval_frame
+
+    per_band = [eval_frame(mapper, b) for b in split_bands(cam, n_bands)]
+    mse = sum(10.0 ** (-m["psnr"] / 10.0) for m in per_band) / n_bands
+    return {"psnr": -10.0 * math.log10(mse),
+            "depth_l1_cm": sum(m["depth_l1_cm"] for m in per_band) / n_bands,
+            "bin_overflow": max(m["bin_overflow"] for m in per_band)}
+
+
 def run_jax_sequence(args, cams):
-    """The JAX package's slice loop: slam.py:125-157 per frame (non-band
-    branch), then update poses, the final global pass and the last
-    keyframe's eval (slam.py:163-193), with :func:`jax_mapper`.
-    Same return keys as ``rtgslam_torch.slam.run.run_sequence``, without
-    the timings."""
+    """The JAX package's slice loop: slam.py:125-157 per frame (with
+    ``frame_bands`` > 1 the banded step, :71-123), then update poses, the
+    final global pass and the last keyframe's eval (slam.py:163-193, band by
+    band when banded), with :func:`jax_mapper`.  Same return keys as
+    ``rtgslam_torch.slam.run.run_sequence``, without the timings."""
     from rtgslam_tpu.config import OptimizationParams
     from rtgslam_tpu.slam import Tracker
     from rtgslam_tpu.slam.eval import eval_frame
 
     opt = OptimizationParams().extract(args)
     tracker, mapper = Tracker(args), jax_mapper(args)
+    n_bands = int(getattr(args, "frame_bands", 1))
+    track_settings, feedback_overflow = None, 0
     counts = []
     for i, cam in enumerate(cams):
-        fm = tracker.map_preprocess(cam, i)
-        tracker.tracking(cam, fm)
-        mapper.update_poses(tracker.get_new_poses())
-        mapper.mapping(cam, fm, i, opt)
-        mapper.get_render_output(cam)
-        tracker.update_last_status(
-            cam, mapper.model_map["render_depth"], mapper.frame_map["depth_map"],
-            mapper.model_map["render_normal"], mapper.frame_map["normal_map_w"])
+        if n_bands > 1:
+            track_settings, over = _jax_banded_step(args, tracker, mapper, cam,
+                                                    i, opt, track_settings)
+            feedback_overflow = max(feedback_overflow, over)
+        else:
+            fm = tracker.map_preprocess(cam, i)
+            tracker.tracking(cam, fm)
+            mapper.update_poses(tracker.get_new_poses())
+            mapper.mapping(cam, fm, i, opt)
+            mapper.get_render_output(cam)
+            tracker.update_last_status(
+                cam, mapper.model_map["render_depth"], mapper.frame_map["depth_map"],
+                mapper.model_map["render_normal"], mapper.frame_map["normal_map_w"])
         counts.append((mapper.get_unstable_num, mapper.get_stable_num))
         mapper.time += 1
     mapper.update_poses(tracker.get_new_poses())
     mapper.global_optimization(opt, is_end=True)
     eval_cam = cams[mapper.keyframe_list[-1]["frame"].uid]
-    metrics = eval_frame(mapper, eval_cam)
+    metrics = (_jax_eval_banded(mapper, eval_cam, n_bands) if n_bands > 1
+               else eval_frame(mapper, eval_cam))
     return {
         "poses": np.stack(tracker.pose_es),
         "ate_cm": tracker.eval_ate(),
@@ -520,6 +660,9 @@ def run_jax_sequence(args, cams):
         "n_unstable": mapper.get_unstable_num,
         "counts": counts,
         "max_overflow": max(int(mapper.max_overflow), metrics["bin_overflow"]),
+        "keyframes": [(kf["frame"].uid, kf["frame"].image_name)
+                      for kf in mapper.keyframe_list],
+        "feedback_overflow": feedback_overflow,
     }
 
 
@@ -614,15 +757,17 @@ def entry_main(a):
 
     from rtgslam_tpu.data.synthetic import write_scene
 
-    overrides = entry_overrides(a.height, a.width, a.orb, a.mp)
-    out_path = a.out or reference_name(a.height, a.width, a.orb, a.mp)
+    overrides = entry_overrides(a.height, a.width, a.orb, a.mp, a.bands,
+                                a.track_stride)
+    parent = entry_parent(a.height, a.width, a.bands)
+    out_path = a.out or reference_name(a.height, a.width, a.orb, a.mp, a.bands)
     slam_script = "slam_mp.py" if a.mp else "slam.py"
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         scene = write_scene(os.path.join(tmp, "scene"), a.frames, a.height, a.width)
         save = os.path.join(tmp, "out")
-        cfg = write_child_config(os.path.join(tmp, "entry.yaml"), ROOM_YAML,
+        cfg = write_child_config(os.path.join(tmp, "entry.yaml"), parent,
                                  scene, save, overrides)
         logs = {}
         for script in (slam_script, "metric.py"):
@@ -634,17 +779,24 @@ def entry_main(a):
                 sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
                 raise SystemExit(f"{script} failed ({proc.returncode})")
         ref = summarize_run(save)
+    if a.bands > 1:
+        ref.update(banded_eval(logs[slam_script]))
     # slam_mp.py prints neither line
     counts = re.search(r"stable num: (\d+), unstable num: (\d+)", logs[slam_script])
     overflow = re.search(r"max bin_overflow: (\d+)", logs[slam_script])
     import jax
 
     flags = " ".join(f for f, on in (("--entry", not a.mp), ("--orb", a.orb),
-                                      ("--mp", a.mp)) if on)
+                                      ("--mp", a.mp),
+                                      (f"--bands {a.bands}", a.bands > 1),
+                                      (f"--track-stride {a.track_stride}",
+                                       a.track_stride)) if on)
     ref.update({
         "command": (f"JAX_PLATFORMS=cpu python tests/torch_parity.py {flags} "
-                    f"--frames {a.frames} --height {a.height} --width {a.width}"),
-        "config": "configs/synthetic/room.yaml with overrides",
+                    f"--frames {a.frames} --height {a.height} --width {a.width}"
+                    + (f" --out {os.path.relpath(out_path, REPO)}" if a.out else "")),
+        "config": f"{os.path.relpath(parent, REPO)} with overrides",
+        "parent": os.path.relpath(parent, REPO),
         "entry_point": slam_script,
         "overrides": overrides,
         "frames": a.frames, "height": a.height, "width": a.width,
@@ -656,9 +808,9 @@ def entry_main(a):
     })
     with open(out_path, "w") as f:
         json.dump(ref, f, indent=1)
-    print(json.dumps({k: ref[k] for k in ("ate_cm", "psnr", "depth_l1_cm",
-                                          "loop_end_counts", "max_overflow",
-                                          "csv_mean")}))
+    print(json.dumps({k: ref.get(k) for k in (
+        "ate_cm", "psnr", "depth_l1_cm", "banded_psnr", "banded_depth_l1_cm",
+        "loop_end_counts", "max_overflow", "csv_mean", "seconds")}))
 
 
 def port_main(a):
@@ -677,27 +829,35 @@ def port_main(a):
     from rtgslam_torch.data.synthetic import write_scene
     from rtgslam_torch.utils.threefry import jax_priorities
 
-    path = a.out or reference_name(a.height, a.width, a.orb, a.mp)
+    path = a.out or reference_name(a.height, a.width, a.orb, a.mp, a.bands)
     with open(path) as f:
         ref = json.load(f)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         scene = write_scene(os.path.join(tmp, "scene"), ref["frames"],
                             ref["height"], ref["width"])
-        cfg = write_child_config(os.path.join(tmp, "c.yaml"), ROOM_YAML, scene,
-                                 os.path.join(tmp, "out"), ref["overrides"])
+        cfg = write_child_config(os.path.join(tmp, "c.yaml"), reference_parent(ref),
+                                 scene, os.path.join(tmp, "out"), ref["overrides"])
         os.chdir(REPO)
-        (slam_mp_torch if a.mp else slam_torch).main(
-            ["--config", cfg, "--device", "cpu"], priority_source=jax_priorities())
+        log = Tee()
+        with contextlib.redirect_stdout(log):
+            (slam_mp_torch if a.mp else slam_torch).main(
+                ["--config", cfg, "--device", "cpu"],
+                priority_source=jax_priorities())
         metric_torch.main(["--config", cfg, "--device", "cpu"])
         got = summarize_run(os.path.join(tmp, "out"))
+    banded = ({k: [v, ref[k]] for k, v in banded_eval(log.text()).items()}
+              if "banded_psnr" in ref else {})
     print(json.dumps({
         "reference": os.path.basename(path), "threads": a.threads,
         "seconds": time.perf_counter() - t0,
         "pose_max_abs": float(np.abs(np.array(got["poses"])
                                      - np.array(ref["poses"])).max()),
+        "pose_max_abs_per_frame": np.abs(np.array(got["poses"]) - np.array(
+            ref["poses"])).max(axis=(1, 2)).round(6).tolist(),
         **{k: [got[k], ref[k]] for k in ("ate_cm", "psnr", "depth_l1_cm")},
         "csv_mean_psnr": [got["csv_mean"]["psnr"], ref["csv_mean"]["psnr"]],
+        **banded,
         "rows_outside_2pct": rows_within(got["checkpoint_rows"],
                                          ref["checkpoint_rows"], 0.02)}))
 
@@ -966,6 +1126,11 @@ def main():
                     help="with --entry: the TUM tracking keys (TUM_KEYS)")
     ap.add_argument("--mp", action="store_true",
                     help="reference of slam_mp.py (strict, 1 frame) + metric.py")
+    ap.add_argument("--bands", type=int, default=1,
+                    help="with --entry: the row-band path, frame_bands N "
+                         "(BAND_ENTRY's config at that size)")
+    ap.add_argument("--track-stride", type=int, default=0,
+                    help="with --bands: replace BAND_ENTRY's band_track_stride")
     ap.add_argument("--port", action="store_true",
                     help="run the port on the CPU against that reference "
                          "(read from --out when given) and print the gaps")
