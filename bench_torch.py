@@ -100,6 +100,9 @@ def bench(args, cams, warmup, n_reps, device, priority_source=None):
     metrics = eval_frame(mapper, cams[-1])
     # the run-wide high-water mark, not only the eval frame's render
     overflow = max(int(mapper.max_overflow), int(metrics["bin_overflow"]))
+    # bench.py's rule over the JAX mapper's count (lifecycle renders, the
+    # last one not folded): what bench.py's bin_overflow reads; no gate
+    lifecycle = max(int(mapper.lifecycle_overflow), int(metrics["bin_overflow"]))
     H, W = cams[-1].image_height, cams[-1].image_width
     result = {
         "metric": METRIC,
@@ -124,6 +127,7 @@ def bench(args, cams, warmup, n_reps, device, priority_source=None):
             "depth_l1_cm": round(float(metrics["depth_l1_cm"]), 4),
             "gaussians": mapper.get_unstable_num + mapper.get_stable_num,
             "bin_overflow": overflow,
+            "lifecycle_overflow": lifecycle,
         },
     }
     if perf.ENABLED:

@@ -164,6 +164,12 @@ def alive_mask(state: MapState) -> torch.Tensor:
     return state.status != FREE
 
 
+def counts(state: MapState):
+    """(unstable, stable) slot counts as device scalars (``counts`` :178)."""
+    return (torch.sum(state.status == UNSTABLE),
+            torch.sum(state.status == STABLE))
+
+
 # ---------------------------------------------------------------------------
 # host-side import/export (checkpoints)
 # ---------------------------------------------------------------------------

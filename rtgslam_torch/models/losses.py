@@ -1,7 +1,8 @@
 """Optimization losses and image metrics.
 
-Port of ``l1_loss`` (:16), ``masked_mean`` (:24), ``psnr`` (:32), ``ssim``
-(:45) and ``ms_ssim`` (:72) from ``rtgslam_tpu/models/losses.py``
+Port of ``l1_loss`` (:16), ``l2_loss`` (:20), ``masked_mean`` (:24),
+``psnr`` (:32), ``ssim`` (:45), ``ms_ssim`` (:72) and ``cosine_distance``
+(:91) from ``rtgslam_tpu/models/losses.py``
 (reference ``utils/loss_utils.py``: 11x11
 gaussian window, sigma 1.5, the standard stability constants).  The SSIM
 filter is a float32 depthwise convolution; ``setup_device`` keeps cuDNN
@@ -16,6 +17,10 @@ import torch.nn.functional as F
 
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(a - b))
+
+
+def l2_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean((a - b) ** 2)
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -80,3 +85,10 @@ def ms_ssim(img: torch.Tensor, gt: torch.Tensor, levels: int = 5) -> torch.Tenso
         vals.append(torch.clamp(ssim(a, b), 0.0, 1.0))
         a, b = down(a), down(b)
     return torch.prod(torch.stack(vals) ** weights)
+
+
+def cosine_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """1 - cos similarity along the last axis."""
+    num = torch.sum(a * b, dim=-1)
+    den = torch.linalg.norm(a, dim=-1) * torch.linalg.norm(b, dim=-1) + 1e-8
+    return 1.0 - num / den

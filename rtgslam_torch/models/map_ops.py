@@ -41,6 +41,21 @@ def inverse_sigmoid(x):
     return torch.log(x / (1.0 - x))
 
 
+def high_water_mark(state: MapState) -> torch.Tensor:
+    """1 + the highest occupied slot index, 0 when the map is empty, as a
+    device scalar (``high_water_mark`` :44).  Inserts fill the lowest free
+    slots, so every alive row lies below it."""
+    idx = torch.arange(1, state.status.shape[0] + 1, dtype=torch.int32,
+                       device=state.status.device)
+    return torch.max(torch.where(state.status != FREE, idx, 0))
+
+
+def map_counters(state: MapState):
+    """(high-water mark, stable count) as device scalars (``map_counters``
+    :503)."""
+    return high_water_mark(state), torch.sum(state.status == STABLE)
+
+
 # ---------------------------------------------------------------------------
 # pixel sampling
 # ---------------------------------------------------------------------------

@@ -3,7 +3,10 @@
 Port of ``rtgslam_tpu/ops/rasterize/project.py``:
 :func:`project_geometry` gives the screen-space geometry binning needs for
 every slot; :func:`shade_cols` the SH color and opaque-normal gate, run on
-the depth-sorted visible subset only.
+the depth-sorted visible subset only.  :func:`shade` and :func:`project`
+(a :class:`FullProjection` over the whole array) are the JAX module's
+compatibility surface for tests and tools; the render path does not use
+them.
 """
 
 from __future__ import annotations
@@ -28,6 +31,19 @@ class Projected(NamedTuple):
     depth: torch.Tensor    # [P] view-space z
     radius: torch.Tensor   # [P] screen-space 3-sigma radius (pixels)
     visible: torch.Tensor  # [P] bool
+
+
+class FullProjection(NamedTuple):
+    """Geometry + shading (``FullProjection`` :43)."""
+
+    mean2d: torch.Tensor
+    conic: torch.Tensor
+    depth: torch.Tensor
+    radius: torch.Tensor
+    rgb: torch.Tensor
+    opacity: torch.Tensor
+    normal_elig: torch.Tensor
+    visible: torch.Tensor
 
 
 def project_geometry(xyz, scaling, rotation, alive, w2c, K, width: int,
@@ -106,3 +122,27 @@ def shade_cols(xyz, shs_flat, normal, campos, sh_degree: int,
     b = torch.maximum(b + 0.5, zero)
     ndot = normal[..., 0] * dx + normal[..., 1] * dy + normal[..., 2] * dz
     return r, g, b, torch.abs(ndot) >= normal_threshold
+
+
+def shade(xyz, shs, normal, campos, sh_degree: int, normal_threshold: float):
+    """Stacked-output twin of :func:`shade_cols` (``shade`` :175): returns
+    (rgb [P, 3], normal_elig [P])."""
+    r, g, b, normal_elig = shade_cols(
+        xyz, shs.reshape(shs.shape[0], -1), normal, campos, sh_degree,
+        normal_threshold)
+    return torch.stack([r, g, b], dim=-1), normal_elig
+
+
+def project(xyz, scaling, rotation, opacity, shs, normal, alive, w2c, K,
+            campos, width: int, height: int, sh_degree: int,
+            normal_threshold: float,
+            scale_modifier: float = 1.0) -> FullProjection:
+    """Projection with shading over the whole array (``project`` :190); the
+    render path shades only the sorted visible subset instead."""
+    geo = project_geometry(xyz, scaling, rotation, alive, w2c, K, width,
+                           height, scale_modifier)
+    rgb, elig = shade(xyz, shs, normal, campos, sh_degree, normal_threshold)
+    return FullProjection(
+        mean2d=geo.mean2d, conic=geo.conic, depth=geo.depth,
+        radius=geo.radius, rgb=rgb, opacity=opacity.reshape(-1),
+        normal_elig=elig, visible=geo.visible)

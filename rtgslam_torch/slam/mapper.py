@@ -140,6 +140,12 @@ class Mapper:
         # feedback renders at the tracker's (slam/run.py)
         self.max_overflow = 0
         self.max_feedback_overflow = 0
+        # the JAX mapper's count (its ``max_overflow``, :127): the lifecycle
+        # renders only, each folded in when the next spawn or frame chain
+        # starts (``_cached_hwm`` :217), so the newest stays pending until
+        # then or ``fold_overflow``
+        self.lifecycle_overflow = 0
+        self._pending_overflow: Optional[int] = None
 
         # TensorBoard scalars in single-process mode (``tb_writer`` :131,
         # reference mapper.py:928-931,968-980); none where
@@ -182,8 +188,19 @@ class Mapper:
     def get_total_iter(self) -> int:
         return self.iter + self.time * self.gaussian_update_iter
 
-    def _note_overflow(self, out) -> None:
-        self.max_overflow = max(self.max_overflow, int(out["overflow"]))
+    def _note_overflow(self, out) -> int:
+        overflow = int(out["overflow"])
+        self.max_overflow = max(self.max_overflow, overflow)
+        return overflow
+
+    def fold_overflow(self) -> None:
+        """Fold the newest lifecycle render's overflow into
+        ``lifecycle_overflow`` (what ``_cached_hwm`` :217-222 does, and
+        ``tests/test_slam_e2e.py`` by hand after a run)."""
+        if self._pending_overflow is not None:
+            self.lifecycle_overflow = max(self.lifecycle_overflow,
+                                          self._pending_overflow)
+            self._pending_overflow = None
 
     def _render(self, camera: Dict[str, torch.Tensor],
                 settings: Optional[RasterSettings] = None,
@@ -252,6 +269,7 @@ class Mapper:
     def gaussians_add(self, frame: Camera):
         """Three-type spawning with its model/stable renders
         (``gaussians_add`` :228, reference mapper.py:128-132,728,849)."""
+        self.fold_overflow()
         with perf.span("map.counter_fetch"):
             has_stable = self.get_stable_num > 0
         with perf.span("map.spawn_chain"):
@@ -267,6 +285,7 @@ class Mapper:
 
     def _mapping_fused_frame(self, frame: Camera):
         """Non-optimize frame: spawn + lifecycle (``:306``)."""
+        self.fold_overflow()
         with perf.span("map.counter_fetch"):
             has_stable = self.get_stable_num > 0
         with perf.span("map.frame_chain"):
@@ -276,9 +295,8 @@ class Mapper:
                 self._lifecycle_args(), self.config, self.max_spawn,
                 self.settings, has_stable=has_stable)
         self._note_overflow(model_out)
-        self._note_overflow(out)
         self._set_model_map(model_out)
-        self._cache_render(out, (self.time, frame.uid))
+        self._cache_render(out, (self.time, frame.uid), self._note_overflow(out))
         return n
 
     # ------------------------------------------------------------------
@@ -503,12 +521,15 @@ class Mapper:
                 self.state, rec["camera"].device_dict(self.device),
                 fm["color_map"], fm["depth_map"], self._lifecycle_args(),
                 self.settings)
-        self._note_overflow(out)
-        self._cache_render(out, (self.time, rec["camera"].uid))
+        self._cache_render(out, (self.time, rec["camera"].uid),
+                           self._note_overflow(out))
 
-    def _cache_render(self, out, key) -> None:
+    def _cache_render(self, out, key, overflow: int) -> None:
+        """Keep this frame's lifecycle render and hold its overflow until
+        the next fold (``_cache_render`` :773)."""
         self._cached_render = out
         self._cached_render_key = key
+        self._pending_overflow = overflow
 
     # ------------------------------------------------------------------
     # top-level per-frame entry

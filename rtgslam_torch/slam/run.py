@@ -154,7 +154,11 @@ def run_sequence(args, cams: List[Camera], device="cuda",
 
     Returns poses [N, 4, 4], ate_cm, the last keyframe's eval metrics
     (psnr, depth_l1_cm, ...), the final stable / unstable counts, the
-    per-frame (unstable, stable) counts, max bin overflow, the per-frame
+    per-frame (unstable, stable) counts, max bin overflow (the mapper's
+    ``max_overflow`` and the eval render's), ``lifecycle_overflow`` (the same
+    with JAX's count, ``Mapper.lifecycle_overflow``, in place of the port's:
+    the last frame's lifecycle render not folded in, as when ``slam.py``
+    prints it), the per-frame
     tracking / mapping milliseconds (host clock around work that ends in a
     device synchronize), which frames ran a gradient pass, the final pass's
     milliseconds, the mapper and the tracker; banded, the eval's bands and
@@ -209,6 +213,8 @@ def run_sequence(args, cams: List[Camera], device="cuda",
         "n_unstable": mapper.get_unstable_num,
         "counts": counts,
         "max_overflow": max(mapper.max_overflow, metrics["bin_overflow"]),
+        "lifecycle_overflow": max(mapper.lifecycle_overflow,
+                                  metrics["bin_overflow"]),
         "feedback_overflow": mapper.max_feedback_overflow,
         "track_ms": track_ms,
         "map_ms": map_ms,

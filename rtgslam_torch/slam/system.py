@@ -315,7 +315,8 @@ class SLAM:
         fps = self.recorder.cal_fps()
         self.recorder.save(self.args.save_path)
         print(f"[LOG] ATE RMSE: {ate:.3f} cm  mapping FPS: {fps:.2f}  "
-              f"max bin_overflow: {self.mapper.max_overflow}")
+              f"max bin_overflow: {self.mapper.max_overflow} (JAX's count, "
+              f"lifecycle renders: {self.mapper.lifecycle_overflow})")
         return {"ate_cm": ate, "fps": fps, "wall_s": wall_s,
                 "map_end": dict(self.map_end),
                 "decode_ms": self.decode_ms, "mapper": self.mapper,

@@ -1,9 +1,9 @@
 """Run-time helpers: seeding, timestamped stdout, the run directory, the
 device.
 
-``safe_state`` and ``create_workspace`` are copies of
-``rtgslam_tpu/utils/general.py`` (:45, :50), which the JAX package reaches
-only through a module that imports JAX.
+``inverse_sigmoid_np``, ``safe_state`` and ``create_workspace`` are copies
+of ``rtgslam_tpu/utils/general.py`` (:21, :45, :50), which the JAX package
+reaches only through a module that imports JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +23,10 @@ DEFAULT_SEED = 2024  # determinism aid, matching the reference's fixed seed
 def set_seed(seed: int = DEFAULT_SEED) -> None:
     random.seed(seed)
     np.random.seed(seed)
+
+
+def inverse_sigmoid_np(x: np.ndarray) -> np.ndarray:
+    return np.log(x / (1 - x))
 
 
 class _TimestampedStream:

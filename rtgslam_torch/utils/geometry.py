@@ -66,6 +66,14 @@ def quat_align_z_to(normal: torch.Tensor) -> torch.Tensor:
     return torch.where(near_parallel, fallback, q)
 
 
+def build_covariance(scaling: torch.Tensor, rotation_q: torch.Tensor) -> torch.Tensor:
+    """3D covariance R S S^T R^T from per-gaussian scales [..., 3] and
+    quaternions [..., 4] (``build_covariance`` :101)."""
+    R = quat_to_rotmat(rotation_q)
+    RS = R * scaling[..., None, :]
+    return RS @ RS.transpose(-1, -2)
+
+
 # ---------------------------------------------------------------------------
 # SE(3)
 # ---------------------------------------------------------------------------
@@ -118,6 +126,21 @@ def world_to_view(R: np.ndarray, t: np.ndarray,
     C2W = np.linalg.inv(Rt)
     C2W[:3, 3] = (C2W[:3, 3] + translate) * scale
     return np.float32(np.linalg.inv(C2W))
+
+
+def projection_matrix(znear: float, zfar: float, fovx: float, fovy: float) -> np.ndarray:
+    """GL-style perspective projection (``projection_matrix`` :174,
+    reference ``getProjectionMatrix``)."""
+    tan_y = math.tan(fovy / 2)
+    tan_x = math.tan(fovx / 2)
+    top, right = tan_y * znear, tan_x * znear
+    P = np.zeros((4, 4), dtype=np.float32)
+    P[0, 0] = znear / right
+    P[1, 1] = znear / top
+    P[3, 2] = 1.0
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = -(zfar * znear) / (zfar - znear)
+    return P
 
 
 def fov2focal(fov: float, pixels: int) -> float:

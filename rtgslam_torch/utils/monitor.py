@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from collections import defaultdict
+from contextlib import contextmanager
 from typing import Dict, List, Optional
 
 import torch
@@ -35,6 +37,16 @@ class Recorder:
 
     def update_max(self, name: str, value: float) -> None:
         self.max_dict[name] = max(self.max_dict[name], value)
+
+    @contextmanager
+    def time_block(self, name: str):
+        """Add the host-clock seconds the block took to ``name``'s mean
+        (``time_block`` :37).  It does not synchronize the device, as the
+        JAX one does not: work the block queued on the GPU and did not wait
+        for is not in the time."""
+        start = time.time()
+        yield
+        self.update_mean(name, time.time() - start, 1)
 
     def watch_memory(self) -> Optional[float]:
         """Record the CUDA memory in use and the allocator's peak, in GiB;

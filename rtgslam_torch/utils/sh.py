@@ -27,6 +27,10 @@ def sh_to_rgb(sh: torch.Tensor) -> torch.Tensor:
     return sh * C0 + 0.5
 
 
+def num_sh_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
 def sh_basis_cols(degree: int, x, y, z):
     """The (degree+1)^2 real-SH basis values as a list of [...] columns of
     the unit view direction (``sh.py::sh_basis_cols`` :35)."""

@@ -176,7 +176,8 @@ def _run(args, device, priority_source):
     fps = recorder.cal_fps()
     recorder.save(args.save_path)
     print(f"[LOG] ATE RMSE: {ate:.3f} cm  mapping FPS: {fps:.2f}  "
-          f"max bin_overflow: {mapper.max_overflow}")
+          f"max bin_overflow: {mapper.max_overflow} "
+          f"(JAX's count, lifecycle renders: {mapper.lifecycle_overflow})")
     if n_bands > 1:
         print(f"[LOG] feedback renders (tracking size) max bin_overflow: "
               f"{mapper.max_feedback_overflow}")

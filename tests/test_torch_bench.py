@@ -10,7 +10,8 @@ and the port replays the JAX mapper's spawn priorities
 (``utils/threefry.py::jax_priorities``).  Tolerances are those of the
 96x128 entry-point parity test (``test_torch_entry.py::TOL``): ATE 0.05 cm,
 PSNR 0.2 dB, depth L1 0.01 cm; gaussians within 1 % (``chip_smoke.py``'s
-``REF_TOL``); bin overflow equal.
+``REF_TOL``); bin overflow equal, the port's count and JAX's
+(``detail.lifecycle_overflow``, which bench.py's line lacks).
 """
 
 import json
@@ -33,6 +34,9 @@ TOL = {"ate_cm": 0.05, "psnr": 0.2, "depth_l1_cm": 0.01, "gaussians_rel": 0.01}
 # accounting and the wedge filter
 TUNNEL_KEYS = {"dispatch_floor_ms", "device_mapping_ms", "device_tracking_ms",
                "device_fps", "wedge_frames_dropped"}
+# the port's detail key that bench.py's line lacks: bench.py's overflow rule
+# over the JAX mapper's count (Mapper.lifecycle_overflow), beside the port's
+PORT_KEYS = {"lifecycle_overflow"}
 
 
 def _run(monkeypatch, capsys, **env):
@@ -52,7 +56,7 @@ def test_bench_matches_jax_reference(monkeypatch, capsys):
     assert result["metric"] == want["metric"] == "synthetic_room_online_mapping_fps"
     assert result["unit"] == "fps"
     assert set(result) == set(want)
-    assert set(result["detail"]) == set(want["detail"]) - TUNNEL_KEYS
+    assert set(result["detail"]) - PORT_KEYS == set(want["detail"]) - TUNNEL_KEYS
     d, w = result["detail"], want["detail"]
     assert (d["H"], d["W"], d["frames"], d["reps"]) == (96, 128, 8, 1)
     assert len(d["rep_fps"]) == 1 and result["value"] == d["rep_fps"][0]
@@ -61,6 +65,7 @@ def test_bench_matches_jax_reference(monkeypatch, capsys):
         assert abs(d[k] - w[k]) <= TOL[k], (k, d[k], w[k])
     assert abs(d["gaussians"] - w["gaussians"]) <= TOL["gaussians_rel"] * w["gaussians"]
     assert d["bin_overflow"] == w["bin_overflow"] == 0
+    assert d["lifecycle_overflow"] == w["bin_overflow"]
     assert "perf" not in d
 
 
@@ -76,6 +81,7 @@ def test_bench_overflow_exits_2(monkeypatch, capsys):
     out = capsys.readouterr()
     line = json.loads(out.out.strip().splitlines()[-1])
     assert line["detail"]["bin_overflow"] > 0
+    assert 0 < line["detail"]["lifecycle_overflow"] <= line["detail"]["bin_overflow"]
     assert "bin_overflow" in out.err
 
 

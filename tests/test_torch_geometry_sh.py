@@ -69,6 +69,32 @@ def test_camera_helpers_are_copies():
     assert tgeo.trans_compare(t, 2 * t) == jgeo.trans_compare(t, 2 * t)
 
 
+@pytest.mark.parametrize("batch", [(300,), (7, 30)])
+def test_build_covariance(batch):
+    """R S S^T R^T: the 3x3 products' sums may round in another order, so
+    1e-6 of the largest entry (scales up to 0.5 m)."""
+    rng = np.random.default_rng(len(batch))
+    s = rng.uniform(0.01, 0.5, batch + (3,)).astype(np.float32)
+    q = rng.standard_normal(batch + (4,)).astype(np.float32)
+    a = np.asarray(jgeo.build_covariance(jnp.asarray(s), jnp.asarray(q)))
+    b = tgeo.build_covariance(torch.from_numpy(s), torch.from_numpy(q)).numpy()
+    assert b.shape == a.shape == batch + (3, 3)
+    np.testing.assert_allclose(b, a, atol=1e-6 * np.abs(a).max())
+
+
+@pytest.mark.parametrize("znear,zfar,fovx,fovy,degree", [
+    (0.01, 100.0, 1.1, 0.8, 0), (0.1, 8.0, 1.5, 1.0, 1),
+    (0.2, 1000.0, 0.6, 0.45, 3)])
+def test_projection_matrix_and_num_sh_coeffs_are_copies(znear, zfar, fovx,
+                                                        fovy, degree):
+    """Host-side copies: exactly equal, numpy float32 as in JAX."""
+    a = jgeo.projection_matrix(znear, zfar, fovx, fovy)
+    b = tgeo.projection_matrix(znear, zfar, fovx, fovy)
+    assert isinstance(b, np.ndarray) and b.dtype == a.dtype == np.float32
+    assert np.array_equal(b, a)
+    assert tsh.num_sh_coeffs(degree) == jsh.num_sh_coeffs(degree)
+
+
 @pytest.mark.parametrize("degree", [0, 1, 2, 3])
 def test_eval_sh(degree):
     rng = np.random.default_rng(degree)

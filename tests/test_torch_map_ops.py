@@ -269,6 +269,73 @@ def test_map_state_numpy_round_trip():
         assert np.array_equal(np.asarray(getattr(jstate, f)), st[f]), f
 
 
+def _temp(n, Kt, offset, seed, to):
+    """A spawn staging buffer whose first ``n`` rows are valid, in either
+    package's ``TempPoints`` (``to`` converts a numpy array)."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-1, 1, (Kt, 3)).astype(np.float32) + np.float32(offset)
+    valid = np.zeros(Kt, bool)
+    valid[:n] = True
+    normal = np.tile(np.float32([0, 0, -1]), (Kt, 1))
+    color = rng.uniform(0.1, 0.9, (Kt, 3)).astype(np.float32)
+    opacity = np.full((Kt, 1), 3.0, np.float32)
+    return dict(xyz=to(xyz), normal=to(normal), color=to(color),
+                opacity=to(opacity), valid=to(valid))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_counts_and_high_water_mark(seed):
+    """``counts``, ``high_water_mark`` and ``map_counters`` against the JAX
+    package's after inserts, a promotion and deletes (oversized, then
+    expired rows): integers, exactly equal."""
+    from rtgslam_tpu.models.gaussian_map import counts as jcounts
+    from rtgslam_torch.models.gaussian_map import counts as tcounts
+
+    cfg = dataclasses.replace(CFG, capacity=256, temp_capacity=32)
+    jstate, tstate = JMap.create(cfg), TMap.create(cfg)
+    log_scales = np.full((32, 3), -4.0, np.float32)
+
+    def check(expect_hwm=None):
+        want = [int(x) for x in (*jcounts(jstate), jops.high_water_mark(jstate),
+                                 *jops.map_counters(jstate))]
+        got = [int(x) for x in (*tcounts(tstate), tops.high_water_mark(tstate),
+                                *tops.map_counters(tstate))]
+        assert got == want
+        if expect_hwm is not None:
+            assert want[2] == expect_hwm
+
+    def insert(n, time, offset):
+        nonlocal jstate
+        jt = jops.TempPoints(**_temp(n, 32, offset, seed + time, jnp.asarray))
+        tt = tops.TempPoints(**_temp(n, 32, offset, seed + time, _t))
+        jstate, jn, _ = jops.insert_temp(jstate, jt, jnp.asarray(log_scales),
+                                         time, cfg)
+        assert tops.insert_temp(tstate, tt, _t(log_scales), time, cfg) == int(jn)
+
+    check(expect_hwm=0)                          # empty map
+    insert(20 + seed, 0, 0.0)
+    check(expect_hwm=20 + seed)
+    insert(10, 3, 2.0)
+    check()
+    rows = np.arange(5)                          # promote the first five
+    jstate = jstate.replace(confidence=jstate.confidence.at[rows, 0].set(99.0))
+    tstate.confidence[rows, 0] = 99.0
+    jstate = jops.fix_confident(jstate, 50.0)
+    tops.fix_confident(tstate, 50.0)
+    check()
+    top = 29 + seed                              # the highest slot: oversized
+    jstate = jstate.replace(scaling=jstate.scaling.at[top].set(2.0))
+    tstate.scaling[top] = 2.0
+    jstate = jops.delete_gaussians(jstate, 10, 1000.0, unstable=True)
+    tops.delete_gaussians(tstate, 10, 1000.0, unstable=True)
+    check(expect_hwm=top)
+    jstate = jops.delete_gaussians(jstate, 2000, 100.0, unstable=True)
+    tops.delete_gaussians(tstate, 2000, 100.0, unstable=True)
+    check(expect_hwm=5)                          # only the stable rows 0-4
+    insert(3, 2001, 4.0)                         # refills the lowest free slots
+    check(expect_hwm=8)
+
+
 def test_lifecycle_step_strikes_and_deletes():
     """Stable rows near 10 strikes get deleted / released, confident
     unstable rows are promoted, old and oversized unstable rows freed."""

@@ -74,6 +74,30 @@ def test_projection_and_shade(seed, n_alive):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=ATOL)
 
 
+@pytest.mark.parametrize("seed,n_alive", SCENES)
+def test_project_and_shade_compat_surface(seed, n_alive):
+    """``project`` (a ``FullProjection`` over the whole array) and ``shade``
+    against the JAX package's, at ATOL; visible and radius exact."""
+    g, cam, st = make_scene(P=64, n_alive=n_alive, seed=seed)
+    tg, tc, _ = _port_scene(g, cam, st)
+    args = ("xyz", "scales", "rotations", "opacity", "shs", "normal", "alive")
+    tail = (st.width, st.height, st.sh_degree, st.normal_threshold)
+    a = jproj.project(*(g[k] for k in args), cam["w2c"], cam["K"],
+                      cam["campos"], *tail)
+    b = tproj.project(*(tg[k] for k in args), tc["w2c"], tc["K"],
+                      tc["campos"], *tail)
+    assert type(b).__name__ == "FullProjection"
+    assert b._fields == a._fields
+    _assert_tree(b._asdict(), a._asdict(), exact=("visible", "radius"))
+    a = jproj.shade(g["xyz"], g["shs"], g["normal"], cam["campos"], 3,
+                    st.normal_threshold)
+    b = tproj.shade(tg["xyz"], tg["shs"], tg["normal"], tc["campos"], 3,
+                    st.normal_threshold)
+    assert b[0].shape == a[0].shape == (64, 3)
+    np.testing.assert_allclose(b[0].numpy(), np.asarray(a[0]), atol=ATOL)
+    assert np.array_equal(b[1].numpy(), np.asarray(a[1]))
+
+
 @pytest.mark.parametrize("seed,n_alive,tile_capacity", [
     (0, 8, 64), (1, 24, 64), (3, 40, 64), (3, 40, 128), (5, 60, 32)])
 def test_binning_exact(seed, n_alive, tile_capacity):

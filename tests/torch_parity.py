@@ -68,6 +68,16 @@ with ``multi_device`` on (:func:`parallel_mapper_args`):
     python tests/torch_parity.py --parallel
     python tests/torch_parity.py --parallel --mapper --frames 6 --height 96 --width 128
 
+``--overflow`` writes the JAX reference of the lifecycle overflow count at
+undersized capacities (:func:`overflow_run`: tests/conftest.py's sizes with
+``test_slam_e2e.py::test_overflow_tracked_across_run``'s tile and block
+capacities, forward-only, ground-truth poses; with ``--bands 2`` the
+row-band step), which ``tests/test_torch_overflow.py`` and ``chip_smoke.py``'s
+phase 10d hold the port's ``Mapper.lifecycle_overflow`` to:
+
+    JAX_PLATFORMS=cpu python tests/torch_parity.py --overflow --frames 4 --height 96 --width 128
+    JAX_PLATFORMS=cpu python tests/torch_parity.py --overflow --bands 2 --frames 4 --height 96 --width 128
+
 ``--orb --spread SEED...`` runs ``--trace-side jax --perturb SEED`` for
 each seed (seed 0: unperturbed), two at a time, into ``--out``/jax_pSEED
 (a trace already there is read, not run again), and writes the final
@@ -432,19 +442,157 @@ def parallel_mapper_args(base_args, H: int, W: int):
     return args
 
 
+# tests/conftest.py::base_args's keys over configs/base.yaml
+CONFTEST_KEYS = dict(map_capacity=8192, temp_capacity=2048, block_capacity=512,
+                     tile_capacity=128, uniform_sample_num=1500,
+                     memory_length=3, gaussian_update_iter=10,
+                     gaussian_update_frame=2, max_depth=8.0,
+                     stable_confidence_thres=30, save_step=10_000)
+
+
 def conftest_args():
     """tests/conftest.py::base_args, for the script (no pytest)."""
     sys.path.insert(0, os.path.join(REPO))
     from rtgslam_tpu.config import read_config
 
     args = read_config(os.path.join(REPO, "configs", "base.yaml"))
-    for k, v in dict(map_capacity=8192, temp_capacity=2048, block_capacity=512,
-                     tile_capacity=128, uniform_sample_num=1500,
-                     memory_length=3, gaussian_update_iter=10,
-                     gaussian_update_frame=2, max_depth=8.0,
-                     stable_confidence_thres=30, save_step=10_000).items():
+    for k, v in CONFTEST_KEYS.items():
         setattr(args, k, v)
     return args
+
+
+# ---------------------------------------------------------------------------
+# the lifecycle overflow count at undersized capacities (--overflow)
+# ---------------------------------------------------------------------------
+
+def overflow_reference(H: int, W: int, bands: int = 1) -> str:
+    kind = f"overflow_bands{bands}" if bands > 1 else "overflow"
+    return os.path.join(REPO, "tests", "data", f"{kind}_{H}x{W}_jax_cpu.json")
+
+
+# base_args with test_slam_e2e.py::test_overflow_tracked_across_run's
+# undersized tile and block capacities (:196-205), forward-only (the JAX
+# side is zero_iteration_mapper) and ground-truth poses
+OVERFLOW_KEYS = dict(CONFTEST_KEYS, tile_capacity=64, block_capacity=128,
+                     use_gt_pose=True, gaussian_update_iter=0,
+                     final_global_iter=0)
+
+
+def overflow_run(step, mapper, cams, read):
+    """``test_overflow_tracked_across_run``'s loop (track and map a frame
+    with ``step(i, cam)``, advance the clock) on either package's mapper.
+    ``read(mapper)`` gives (the folded count, the pending one or None).
+    Returns, per frame, the (unstable, stable) counts and ``read``'s pair
+    after the frame."""
+    frames = []
+    for i, cam in enumerate(cams):
+        step(i, cam)
+        folded, pending = read(mapper)
+        frames.append({"counts": [mapper.get_unstable_num,
+                                  mapper.get_stable_num],
+                       "folded": folded, "pending": pending})
+        mapper.time += 1
+    return frames
+
+
+def whole_frame_step(tracker, mapper, opt):
+    """slam.py's whole-frame tracking and mapping, as the e2e test runs it
+    (no model feedback: the poses are ground truth)."""
+    def step(i, cam):
+        fm = tracker.map_preprocess(cam, i)
+        tracker.tracking(cam, fm)
+        mapper.mapping(cam, fm, i, opt)
+    return step
+
+
+def port_overflow_run(ref: dict, cams, device, mesh=None):
+    """The port's side of an ``--overflow`` reference ``ref``: configs/
+    base.yaml with its overrides, JAX's spawn priorities, on ``device``
+    (``mesh`` to the mapper).  Returns (per-frame records, the lifecycle
+    count before and after ``fold_overflow``, the port's
+    ``max_overflow``)."""
+    from rtgslam_torch.config import OptimizationParams, read_config
+    from rtgslam_torch.slam.mapper import Mapper
+    from rtgslam_torch.slam.run import track_and_map_banded
+    from rtgslam_torch.slam.tracker import Tracker
+    from rtgslam_torch.utils.threefry import jax_priorities
+
+    args = read_config(os.path.join(REPO, "configs", "base.yaml"))
+    for k, v in ref["overrides"].items():
+        setattr(args, k, v)
+    opt = OptimizationParams().extract(args)
+    tracker = Tracker(args, device)
+    mapper = Mapper(args, device, jax_priorities(), mesh)
+    step = whole_frame_step(tracker, mapper, opt)
+    if int(getattr(args, "frame_bands", 1)) > 1:
+        track = [None]
+
+        def step(i, cam):
+            track[0] = track_and_map_banded(args, tracker, mapper, cam, i,
+                                            opt, track[0])[1]
+    frames = overflow_run(step, mapper, cams,
+                          lambda m: (m.lifecycle_overflow, m._pending_overflow))
+    before = mapper.lifecycle_overflow
+    mapper.fold_overflow()
+    return frames, before, mapper.lifecycle_overflow, mapper.max_overflow
+
+
+def overflow_main(a):
+    """Write the ``--overflow`` reference: the JAX mapper's ``max_overflow``
+    and its pending counter after each frame, and the count before and
+    after the hand fold of ``tests/test_slam_e2e.py:191``."""
+    import time
+
+    import jax
+    from rtgslam_tpu.config import OptimizationParams, read_config
+    from rtgslam_tpu.data.synthetic import make_cameras
+    from rtgslam_tpu.slam import Tracker
+
+    t0 = time.perf_counter()
+    keys = dict(OVERFLOW_KEYS, **({"frame_bands": a.bands} if a.bands > 1 else {}))
+    args = read_config(os.path.join(REPO, "configs", "base.yaml"))
+    for k, v in keys.items():
+        setattr(args, k, v)
+    opt = OptimizationParams().extract(args)
+    tracker, mapper = Tracker(args), jax_mapper(args)
+    step = whole_frame_step(tracker, mapper, opt)
+    if a.bands > 1:
+        track = [None]
+
+        def step(i, cam):
+            track[0] = _jax_banded_step(args, tracker, mapper, cam, i, opt,
+                                        track[0])[0]
+
+    def read(m):
+        return (int(m.max_overflow),
+                None if m._overflow_dev is None else int(m._overflow_dev))
+
+    frames = overflow_run(step, mapper,
+                          make_cameras(n_frames=a.frames, H=a.height, W=a.width),
+                          read)
+    before = int(mapper.max_overflow)
+    mapper._cached_hwm()
+    ref = {
+        "command": (f"JAX_PLATFORMS=cpu python tests/torch_parity.py --overflow "
+                    + (f"--bands {a.bands} " if a.bands > 1 else "")
+                    + f"--frames {a.frames} --height {a.height} --width {a.width}"),
+        "config": "configs/base.yaml with overrides (tests/conftest.py::"
+                  "base_args, tile 64 / block 128, forward-only, GT poses"
+                  + (f", {a.bands} row bands)" if a.bands > 1 else ")"),
+        "overrides": keys,
+        "frames": a.frames, "height": a.height, "width": a.width,
+        "jax_version": jax.__version__,
+        "per_frame": frames,
+        "max_overflow_before_fold": before,
+        "max_overflow_after_fold": int(mapper.max_overflow),
+        "cpu_seconds": time.perf_counter() - t0,
+    }
+    out = a.out or overflow_reference(a.height, a.width, a.bands)
+    with open(out, "w") as f:
+        json.dump(ref, f, indent=1)
+    print(json.dumps({k: ref[k] for k in (
+        "per_frame", "max_overflow_before_fold", "max_overflow_after_fold",
+        "cpu_seconds")}))
 
 
 def _bucket(n, lo, hi):
@@ -841,7 +989,7 @@ def port_main(a):
         os.chdir(REPO)
         log = Tee()
         with contextlib.redirect_stdout(log):
-            (slam_mp_torch if a.mp else slam_torch).main(
+            res = (slam_mp_torch if a.mp else slam_torch).main(
                 ["--config", cfg, "--device", "cpu"],
                 priority_source=jax_priorities())
         metric_torch.main(["--config", cfg, "--device", "cpu"])
@@ -858,6 +1006,11 @@ def port_main(a):
         **{k: [got[k], ref[k]] for k in ("ate_cm", "psnr", "depth_l1_cm")},
         "csv_mean_psnr": [got["csv_mean"]["psnr"], ref["csv_mean"]["psnr"]],
         **banded,
+        # the printed counts: the port's, and JAX's count of the port's run
+        # (Mapper.lifecycle_overflow), each against JAX's printed one
+        "max_overflow": [res["mapper"].max_overflow, ref["max_overflow"]],
+        "lifecycle_overflow": [res["mapper"].lifecycle_overflow,
+                               ref["max_overflow"]],
         "rows_outside_2pct": rows_within(got["checkpoint_rows"],
                                          ref["checkpoint_rows"], 0.02)}))
 
@@ -1128,7 +1281,8 @@ def main():
                     help="reference of slam_mp.py (strict, 1 frame) + metric.py")
     ap.add_argument("--bands", type=int, default=1,
                     help="with --entry: the row-band path, frame_bands N "
-                         "(BAND_ENTRY's config at that size)")
+                         "(BAND_ENTRY's config at that size); with "
+                         "--overflow: OVERFLOW_KEYS with frame_bands N")
     ap.add_argument("--track-stride", type=int, default=0,
                     help="with --bands: replace BAND_ENTRY's band_track_stride")
     ap.add_argument("--port", action="store_true",
@@ -1164,6 +1318,9 @@ def main():
                     help="reference of parallel/ on a 4-device CPU mesh")
     ap.add_argument("--mapper", action="store_true",
                     help="with --parallel: the slice loop with multi_device")
+    ap.add_argument("--overflow", action="store_true",
+                    help="reference of the lifecycle overflow count at "
+                         "undersized capacities (OVERFLOW_KEYS)")
     ap.add_argument("--out", default=None)
     a = ap.parse_args()
     if a.parallel:
@@ -1197,6 +1354,8 @@ def main():
     sys.path.insert(0, REPO)
     if a.entry or a.mp:
         return entry_main(a)
+    if a.overflow:
+        return overflow_main(a)
     out_path = a.out or slice_reference(a.height, a.width, a.optimize)
     import bench
     from rtgslam_tpu.data.synthetic import make_cameras
