@@ -185,10 +185,10 @@ BENCH_DETAIL_KEYS = {
     "median_mapping_ms", "fps_reference_mean_rule", "fps_median_rule",
     "e2e_fps", "ate_cm", "psnr", "depth_l1_cm", "gaussians", "bin_overflow",
     "lifecycle_overflow", "perf"}
-BENCH_SPANS = {"track.upload", "track.dispatch", "track.pose_fetch",
-               "map.counter_fetch", "map.spawn_chain", "map.frame_chain",
-               "map.keyframe_offload", "map.local_optimize",
-               "map.lifecycle_chain"}
+BENCH_SPANS = {"track.frame", "track.upload", "track.dispatch",
+               "track.pose_fetch", "map.frame", "map.counter_fetch",
+               "map.spawn_chain", "map.frame_chain", "map.local_optimize",
+               "map.lifecycle_chain", "optimize.iter"}
 BENCH_WARMUP_IN_PROCESS = 2
 # the F3 check: the card's per-gaussian error sums against the CPU's (another
 # summation order), relative to the largest total

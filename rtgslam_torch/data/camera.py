@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..utils import geometry, image_io
+from ..utils import geometry, image_io, perf
 
 
 class CameraInfo(NamedTuple):
@@ -104,13 +104,16 @@ class Camera:
         return (uv[:, :2] / uv[:, 2:]).astype(np.int64)
 
     def device_dict(self, device="cpu") -> dict:
-        """w2c [4,4], K [3,3] and campos [3] as float32 tensors."""
-        return {
-            "w2c": torch.as_tensor(np.asarray(self.w2c, np.float32), device=device),
-            "K": torch.as_tensor(self.intrinsic, device=device),
-            "campos": torch.as_tensor(
-                np.asarray(self.camera_center, np.float32), device=device),
-        }
+        """w2c [4,4], K [3,3] and campos [3] as float32 tensors: pageable
+        uploads, one wait for the stream."""
+        with perf.span("map.camera_upload"):
+            return {
+                "w2c": torch.as_tensor(np.asarray(self.w2c, np.float32),
+                                       device=device),
+                "K": torch.as_tensor(self.intrinsic, device=device),
+                "campos": torch.as_tensor(
+                    np.asarray(self.camera_center, np.float32), device=device),
+            }
 
     def drop_images(self) -> "Camera":
         """Clone without the pixel payload (keyframe bookkeeping)."""

@@ -20,6 +20,7 @@ from ..ops import knn as knn_ops
 from ..ops import segment as segment_ops
 from ..ops.rasterize.api import (render, render_model_and_stable,
                                  render_with_inserted)
+from ..utils import perf
 from ..utils import sh as sh_utils
 from ..utils.geometry import normalize, quat_align_z_to
 from .gaussian_map import (FREE, STABLE, UNSTABLE, GaussianMapConfig, MapState,
@@ -86,8 +87,10 @@ def gather_temp_points(vertex_w, normal_w, color, idx_a, valid_a, idx_b,
     col = color.reshape(-1, 3)[idx]
     valid = valid & (torch.sum(torch.abs(nrm), dim=-1) > 0)
     # the logit is taken of the float64 ratio, as jnp.log of a Python float
-    opa = torch.log(torch.tensor(init_opacity / (1.0 - init_opacity),
-                                 dtype=torch.float32, device=xyz.device))
+    with perf.span("map.constant_upload"):
+        ratio = torch.tensor(init_opacity / (1.0 - init_opacity),
+                             dtype=torch.float32, device=xyz.device)
+    opa = torch.log(ratio)
     return TempPoints(xyz=xyz, normal=normalize(nrm), color=col,
                       opacity=opa.expand(idx.shape[0], 1).clone(), valid=valid)
 
@@ -101,11 +104,13 @@ def temp_filter_dedup(temp: TempPoints, state: MapState) -> TempPoints:
     3-NN neighbourhood (``:99``, reference mapper.py:797-826).  The KNN
     runs over the unstable rows in slot order, which is the order the JAX
     version's stable partition gives, so ties break alike."""
-    ref_rows = torch.nonzero(state.status == UNSTABLE).squeeze(1)
+    with perf.span("map.rows_fetch"):
+        ref_rows = torch.nonzero(state.status == UNSTABLE).squeeze(1)
     if ref_rows.numel() == 0:
         return temp
     radius = gaussian_radius(state.scaling[ref_rows])
-    q_rows = torch.nonzero(temp.valid).squeeze(1)
+    with perf.span("map.rows_fetch"):
+        q_rows = torch.nonzero(temp.valid).squeeze(1)
     d2, idx = knn_ops.knn(temp.xyz[q_rows], state.xyz[ref_rows],
                           torch.ones_like(ref_rows, dtype=torch.bool), k=3)
     corr = torch.where(idx >= 0, radius[idx.clamp(min=0).long()] * 0.6, 0.0)
@@ -146,11 +151,12 @@ def temp_scale_init(temp: TempPoints, state: MapState,
     alive map rows in slot order (the JAX stable partition's order).
     Returns (filtered temp, log-scales [Kt, 3])."""
     alive = state.status != FREE
-    ref_xyz = torch.cat([temp.xyz[temp.valid], state.xyz[alive]])
-    ref_radius = torch.cat([
-        torch.zeros(int(temp.valid.sum()), device=ref_xyz.device),
-        gaussian_radius(state.scaling[alive])])
-    q_rows = torch.nonzero(temp.valid).squeeze(1)
+    with perf.span("map.rows_fetch"):
+        ref_xyz = torch.cat([temp.xyz[temp.valid], state.xyz[alive]])
+        ref_radius = torch.cat([
+            torch.zeros(int(temp.valid.sum()), device=ref_xyz.device),
+            gaussian_radius(state.scaling[alive])])
+        q_rows = torch.nonzero(temp.valid).squeeze(1)
     d2, idx = knn_ops.knn(temp.xyz[q_rows], ref_xyz,
                           torch.ones(ref_xyz.shape[0], dtype=torch.bool,
                                      device=ref_xyz.device), k=4)
@@ -162,8 +168,9 @@ def temp_scale_init(temp: TempPoints, state: MapState,
     valid[q_rows] = ~torch.any(dist < 0, dim=-1)         # crowding rejection
     mean_sq = torch.mean(torch.clamp(dist, max=1e3) ** 2, dim=-1)
     scales = torch.clamp(torch.sqrt(mean_sq), config.min_radius, config.max_radius)
-    factor = torch.tensor(config.xyz_factor, dtype=torch.float32,
-                          device=scales.device)
+    with perf.span("map.constant_upload"):
+        factor = torch.tensor(config.xyz_factor, dtype=torch.float32,
+                              device=scales.device)
     log_scales = torch.zeros_like(temp.xyz)              # rows never inserted
     log_scales[q_rows] = torch.log(
         config.scale_factor * scales[:, None] * factor[None, :] + 1e-12)
@@ -176,8 +183,9 @@ def insert_temp(state: MapState, temp: TempPoints, log_scales: torch.Tensor,
     gaussians, in temp order (``:210``: ``jnp.nonzero(size=Kt,
     fill_value=P)`` pairs the k-th valid row with the k-th free slot).
     Capacity overflow drops the tail.  Returns the inserted count."""
-    rows = torch.nonzero(temp.valid).squeeze(1)
-    free = torch.nonzero(state.status == FREE).squeeze(1)
+    with perf.span("map.rows_fetch"):
+        rows = torch.nonzero(temp.valid).squeeze(1)
+        free = torch.nonzero(state.status == FREE).squeeze(1)
     n = min(rows.numel(), free.numel())
     rows, slots = rows[:n], free[:n]
     normal = temp.normal[rows]
@@ -188,15 +196,17 @@ def insert_temp(state: MapState, temp: TempPoints, log_scales: torch.Tensor,
         rots = quat_align_z_to(normal)
     state.xyz[slots] = temp.xyz[rows]
     state.features_dc[slots] = sh_utils.rgb_to_sh(temp.color[rows])
-    state.features_rest[slots] = 0.0
     state.scaling[slots] = log_scales[rows]
     state.rotation[slots] = rots
     state.opacity[slots] = temp.opacity[rows]
-    state.confidence[slots] = 0.0
-    state.add_tick[slots] = time
-    state.depth_error_counter[slots] = 0
-    state.color_error_counter[slots] = 0
-    state.status[slots] = UNSTABLE
+    # each host scalar goes to the device before its scatter
+    with perf.span("map.constant_upload"):
+        state.features_rest[slots] = 0.0
+        state.confidence[slots] = 0.0
+        state.add_tick[slots] = time
+        state.depth_error_counter[slots] = 0
+        state.color_error_counter[slots] = 0
+        state.status[slots] = UNSTABLE
     return n
 
 
@@ -210,8 +220,9 @@ def fix_confident(state: MapState, stable_confidence_thres: float) -> None:
     promote = (state.status == UNSTABLE) & (
         state.confidence[:, 0] > stable_confidence_thres)
     state.status[promote] = STABLE
-    state.confidence[promote] = torch.clamp(state.confidence[promote],
-                                            max=stable_confidence_thres)
+    with perf.span("map.rows_fetch"):
+        state.confidence[promote] = torch.clamp(state.confidence[promote],
+                                                max=stable_confidence_thres)
 
 
 def fix_all(state: MapState) -> None:

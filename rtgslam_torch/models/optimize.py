@@ -49,6 +49,7 @@ from ..ops.rasterize.api import (RasterSettings, render, render_compact,
 from ..ops.rasterize.blend import CHUNK, RowIndex, blend_transmission, row_index
 from ..ops.rasterize.project import project_geometry
 from ..ops.segment import stable_partition_order
+from ..utils import perf
 from ..utils.geometry import normalize
 from . import map_ops
 from .gaussian_map import (MapState, activated_opacity, activated_scales,
@@ -247,10 +248,12 @@ def _iterate(params, confidence, loss_fn, frame_of, frame_seq, n_iters: int,
     m, v = zeros, {k: z.clone() for k, z in zeros.items()}
     report = {k: torch.zeros((), device=confidence.device) for k in REPORT_KEYS}
     for i in range(n_iters):
-        frame = frame_of(int(frame_seq[i]))
-        grads, report = loss_grads(lambda p: loss_fn(p, frame), params)
-        params, m, v = _adam_step(params, grads, m, v, i, lrs, update_mask)
-        confidence = bump_confidence(confidence, grads, update_mask)
+        with perf.span("optimize.iter"):
+            frame = frame_of(int(frame_seq[i]))
+            grads, report = loss_grads(lambda p: loss_fn(p, frame), params)
+            params, m, v = _adam_step(params, grads, m, v, i, lrs,
+                                      update_mask)
+            confidence = bump_confidence(confidence, grads, update_mask)
     return params, confidence, report
 
 
@@ -336,7 +339,8 @@ def optimize_prepare(state: MapState, colors, depths, normals, w2cs, Ks,
     local = mode == "local"
     pool_full = alive_mask(state) if local else stable_mask(state)
     pool_order = stable_partition_order(pool_full)
-    n_pool = int(pool_full.sum())
+    with perf.span("optimize.size_fetch"):
+        n_pool = int(pool_full.sum())
     V = min(settings.max_visible, P)
     origins = binning.tile_origins(H, W, dev)
     slot_sentinel = torch.full((1,), P, dtype=torch.int32, device=dev)
@@ -383,11 +387,13 @@ def optimize_prepare(state: MapState, colors, depths, normals, w2cs, Ks,
         rmasks = rmasks & (depths > 0)
     counts = torch.stack(counts)
     tile_order = torch.stack([stable_partition_order(c > 0) for c in counts])
+    with perf.span("optimize.size_fetch"):
+        cnt_max = int(counts.max())
+        n_live_tiles = int((counts > 0).sum(dim=1).max())
     return Prepared(
         rmasks=rmasks, tiles=tiles, lists_orig=torch.stack(lists_orig),
         counts=counts, pool_order=pool_order, tile_order=tile_order,
-        n_pool=n_pool, cnt_max=int(counts.max()),
-        n_live_tiles=int((counts > 0).sum(dim=1).max()))
+        n_pool=n_pool, cnt_max=cnt_max, n_live_tiles=n_live_tiles)
 
 
 class Compact(NamedTuple):
@@ -426,7 +432,8 @@ def compact_problem(state: MapState, colors, depths, normals, w2cs, Ks,
     inv = torch.full((P + 1,), Ac, dtype=torch.int32, device=dev)
     inv[torch.where(row_valid, rows, P)] = torch.arange(
         Ac, dtype=torch.int32, device=dev)
-    inv[P] = Ac
+    with perf.span("optimize.constant_upload"):   # a host scalar
+        inv[P] = Ac
     lists_a = inv[lists_orig[:, :, :Ktc].long()]
     trows = tile_rows.long()
     lists_c = torch.gather(
@@ -468,9 +475,11 @@ def optimize_execute(state: MapState, colors, depths, normals, w2cs, Ks,
     ``n_rows`` pool rows, returns the blend that frame's renders use in
     place of :func:`blend.blend_tiles_fused` (``parallel/sp_optimize.py``)."""
     hist = map_ops.capture_history(state)
-    cp = compact_problem(state, colors, depths, normals, w2cs, Ks, camposes,
-                         rmasks, lists_orig, counts, pool_rows, n_pool,
-                         tile_rows, weights, hist, settings, mode, Ktc)
+    with perf.span("optimize.prepare"):
+        cp = compact_problem(state, colors, depths, normals, w2cs, Ks,
+                             camposes, rmasks, lists_orig, counts, pool_rows,
+                             n_pool, tile_rows, weights, hist, settings, mode,
+                             Ktc)
     aux = {"update_mask": cp.update, "row_valid": cp.row_valid}
     n_tiles_full = counts.shape[1]
     fr = cp.frames
@@ -490,10 +499,11 @@ def optimize_execute(state: MapState, colors, depths, normals, w2cs, Ks,
 
     # ---- scatter the valid rows back into the map ---------------------------
     with torch.no_grad():
-        keep = cp.rows[cp.row_valid]
-        for k in PARAM_KEYS:
-            getattr(state, k)[keep] = params_c[k][cp.row_valid]
-        state.confidence[keep] = conf_c[cp.row_valid]
+        with perf.span("optimize.rows_fetch"):
+            keep = cp.rows[cp.row_valid]
+            for k in PARAM_KEYS:
+                getattr(state, k)[keep] = params_c[k][cp.row_valid]
+            state.confidence[keep] = conf_c[cp.row_valid]
         if mode == "local":
             map_ops.history_merge(state, hist, max_weight, unstable_mask(state))
     return report
@@ -508,12 +518,14 @@ def _frozen_bins(state: MapState, render_alive, w2cs, Ks, tiles,
     tile_counts [F, T])."""
     H, W = settings.height, settings.width
     gauss0 = render_inputs(state, render_alive)
-    bins = [binning.bin_gaussians(
-        project_geometry(gauss0["xyz"], gauss0["scales"], gauss0["rotations"],
-                         gauss0["alive"], w2cs[f], Ks[f], W, H,
-                         settings.scale_modifier),
-        H, W, settings.block_capacity, settings.tile_capacity,
-        settings.max_visible, tile_mask=tiles[f]) for f in range(w2cs.shape[0])]
+    with perf.span("render.prepare"):
+        bins = [binning.bin_gaussians(
+            project_geometry(gauss0["xyz"], gauss0["scales"],
+                             gauss0["rotations"], gauss0["alive"], w2cs[f],
+                             Ks[f], W, H, settings.scale_modifier),
+            H, W, settings.block_capacity, settings.tile_capacity,
+            settings.max_visible, tile_mask=tiles[f])
+            for f in range(w2cs.shape[0])]
     return (torch.stack([b.order for b in bins]),
             torch.stack([b.tile_lists for b in bins]),
             torch.stack([b.tile_counts for b in bins]))
@@ -537,17 +549,19 @@ def optimize_chain(state: MapState, colors, depths, normals, w2cs, Ks,
     hyper = dict(weights, hist_opacity=hist["opacity"],
                  hist_scaling=hist["scaling"], hist_xyz=hist["xyz"],
                  hist_rotation_raw=hist["rotation_raw"])
-    rmasks, tiles = _make_masks(state, colors, w2cs, Ks, camposes, settings,
-                                mode, sample_ratio)
-    if mask_depth_positive:
-        rmasks = rmasks & (depths > 0)
-    frames = {"color": colors, "depth": depths, "normal": normals,
-              "w2c": w2cs, "K": Ks, "campos": camposes,
-              "render_mask": rmasks, "tile_mask": tiles}
-    if freeze_binning:
-        frames.update(zip(("bin_order", "bin_tile_lists", "bin_tile_counts"),
-                          _frozen_bins(state, render_alive, w2cs, Ks, tiles,
-                                       settings)))
+    with perf.span("optimize.prepare"):
+        rmasks, tiles = _make_masks(state, colors, w2cs, Ks, camposes,
+                                    settings, mode, sample_ratio)
+        if mask_depth_positive:
+            rmasks = rmasks & (depths > 0)
+        frames = {"color": colors, "depth": depths, "normal": normals,
+                  "w2c": w2cs, "K": Ks, "campos": camposes,
+                  "render_mask": rmasks, "tile_mask": tiles}
+        if freeze_binning:
+            frames.update(zip(("bin_order", "bin_tile_lists",
+                               "bin_tile_counts"),
+                              _frozen_bins(state, render_alive, w2cs, Ks,
+                                           tiles, settings)))
     report = run_optimize(state, frames, frame_seq, n_iters, render_alive,
                           update_mask, lrs, hyper, settings)
     if local:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import perf
 from ..utils.geometry import exp_se3
 from . import preprocess
 
@@ -125,7 +126,8 @@ def icp_solve_all_levels(pose10, vertex1_pyr, vertex0_pyr, normal1_pyr,
     (``icp_solve_all_levels`` :164).  Returns (pose10, p2p loss)."""
     for level, n_iter in enumerate(iters):
         Ks = K * downscales[level]
-        Ks[2, 2] = 1.0
+        with perf.span("track.intrinsics_upload"):   # a host scalar
+            Ks[2, 2] = 1.0
         v1, v0 = vertex1_pyr[level], vertex0_pyr[level]
         n1, n0 = normal1_pyr[level], normal0_pyr[level]
         H, W = v1.shape[:2]
@@ -148,7 +150,8 @@ def build_icp_pyramids(depth: torch.Tensor, K: torch.Tensor, levels: int):
     vertex, normal = [], []
     for i, d in enumerate(preprocess.depth_pyramid(depth, levels)):
         Ks = K * (1.0 / (1 << (levels - 1 - i)))
-        Ks[2, 2] = 1.0
+        with perf.span("track.intrinsics_upload"):   # a host scalar
+            Ks[2, 2] = 1.0
         vm = preprocess.compute_vertex_map(d, Ks)
         vertex.append(vm)
         normal.append(preprocess.compute_normal_map(vm))
@@ -234,15 +237,17 @@ class IcpTracker:
             self.vertex_t0, self.normal_t0 = build_icp_pyramids(
                 self.last_model_depth, self.K, self.levels)
         dev = self.K.device
-        pose10 = torch.as_tensor(
-            self.last_rel if self.use_motion_model
-            else np.eye(4, dtype=np.float32), device=dev)
+        with perf.span("track.prior_upload"):
+            pose10 = torch.as_tensor(
+                self.last_rel if self.use_motion_model
+                else np.eye(4, dtype=np.float32), device=dev)
         pose10, p2p = icp_solve_all_levels(
             pose10, self.vertex_t1, self.vertex_t0, self.normal_t1,
             self.normal_t0, self.K, [float(s) for s in self.downscales],
             self.iters, self.damping, self.distance_threshold,
             self.normal_threshold, self.association)
-        host = torch.cat([pose10.reshape(-1), p2p.reshape(1)]).cpu().numpy()
+        with perf.span("track.solve_fetch"):
+            host = torch.cat([pose10.reshape(-1), p2p.reshape(1)]).cpu().numpy()
         pose_np = host[:16].reshape(4, 4).astype(np.float32)
         success = bool(host[16] <= self.fail_threshold)
         if not success and self.use_motion_model:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils import perf
 from . import binning, blend
 from .project import project_geometry, shade_cols
 
@@ -79,19 +80,20 @@ def _sorted_pass(gaussians: Dict[str, torch.Tensor], w2c, K, campos,
     Returns (feat [V+1, 11] depth-sorted feature rows with the zero sentinel
     row V, Binning)."""
     H, W = settings.height, settings.width
-    geo = project_geometry(gaussians["xyz"], gaussians["scales"],
-                           gaussians["rotations"], gaussians["alive"],
-                           w2c, K, W, H, settings.scale_modifier)
-    bins = binning.bin_gaussians(geo, H, W, settings.block_capacity,
-                                 settings.tile_capacity, settings.max_visible,
-                                 tile_mask)
-    o = bins.order.long()
-    P = gaussians["xyz"].shape[0]
-    r, g, b, elig = shade_cols(
-        gaussians["xyz"][o], gaussians["shs"].reshape(P, -1)[o],
-        gaussians["normal"][o], campos, settings.sh_degree,
-        settings.normal_threshold)
-    return _feature_rows(geo, o, r, g, b, gaussians["opacity"], elig), bins
+    with perf.span("render.prepare"):
+        geo = project_geometry(gaussians["xyz"], gaussians["scales"],
+                               gaussians["rotations"], gaussians["alive"],
+                               w2c, K, W, H, settings.scale_modifier)
+        bins = binning.bin_gaussians(geo, H, W, settings.block_capacity,
+                                     settings.tile_capacity,
+                                     settings.max_visible, tile_mask)
+        o = bins.order.long()
+        P = gaussians["xyz"].shape[0]
+        r, g, b, elig = shade_cols(
+            gaussians["xyz"][o], gaussians["shs"].reshape(P, -1)[o],
+            gaussians["normal"][o], campos, settings.sh_degree,
+            settings.normal_threshold)
+        return _feature_rows(geo, o, r, g, b, gaussians["opacity"], elig), bins
 
 
 def _blend(feat, bins, settings: RasterSettings,
@@ -207,12 +209,14 @@ def render_transmission(gaussians: Dict[str, torch.Tensor],
     the blend carries 6 columns and skips the shade.  Returns {"T_map"
     [H, W, 1], "overflow"}."""
     H, W = settings.height, settings.width
-    geo = project_geometry(gaussians["xyz"], gaussians["scales"],
-                           gaussians["rotations"], gaussians["alive"],
-                           camera["w2c"], camera["K"], W, H,
-                           settings.scale_modifier)
-    bins = binning.bin_gaussians(geo, H, W, settings.block_capacity,
-                                 settings.tile_capacity, settings.max_visible)
+    with perf.span("render.prepare"):
+        geo = project_geometry(gaussians["xyz"], gaussians["scales"],
+                               gaussians["rotations"], gaussians["alive"],
+                               camera["w2c"], camera["K"], W, H,
+                               settings.scale_modifier)
+        bins = binning.bin_gaussians(geo, H, W, settings.block_capacity,
+                                     settings.tile_capacity,
+                                     settings.max_visible)
     T = blend.blend_transmission(
         transmission_rows(geo, bins.order, gaussians["opacity"]),
         bins.tile_lists, bins.tile_counts,

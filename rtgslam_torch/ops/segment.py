@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import perf
+
 
 def _ordered_bits(x: torch.Tensor) -> torch.Tensor:
     """float32 -> int64 in [0, 2^32) with the floats' order."""
@@ -26,7 +28,9 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor, n: int):
     ptr = torch.searchsorted(seg_sorted,
                              torch.arange(n + 1, device=seg.device))
     lengths = ptr[1:] - ptr[:-1]
-    total = torch.segment_reduce(values[order], "sum", lengths=lengths)
+    # on the card the reduce reads the lengths back to the host
+    with perf.span("map.segment_fetch"):
+        total = torch.segment_reduce(values[order], "sum", lengths=lengths)
     return total, lengths
 
 

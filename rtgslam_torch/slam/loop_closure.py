@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..ops.icp import build_icp_pyramids, icp_solve_all_levels
+from ..utils import perf
 
 # global-descriptor thumbnail grid (rows, cols); 384-dim descriptor
 _DESC_SHAPE = (12, 16)
@@ -68,7 +69,8 @@ def _host_depth(depth_map) -> np.ndarray:
     """[H, W] float32 host copy of a depth map (tensor or array, [H, W] or
     [H, W, 1])."""
     if torch.is_tensor(depth_map):
-        depth_map = depth_map.detach().cpu().numpy()
+        with perf.span("track.depth_fetch"):
+            depth_map = depth_map.detach().cpu().numpy()
     depth = np.asarray(depth_map, np.float32)
     return depth[..., 0] if depth.ndim == 3 else depth
 
@@ -221,22 +223,27 @@ class LoopCloser:
         seeds (``_verify`` :245).  ``"est"`` seeds from the estimates,
         ``"identity"`` from T_ij = I (the basin of an appearance match)."""
         dev = self.device
-        K = (K.to(device=dev, dtype=torch.float32) if torch.is_tensor(K)
-             else torch.as_tensor(np.asarray(K, np.float32), device=dev))
-        v0, n0 = build_icp_pyramids(torch.as_tensor(cand["depth"], device=dev),
-                                    K, self.levels)
-        v1, n1 = build_icp_pyramids(torch.as_tensor(rec["depth"], device=dev),
-                                    K, self.levels)
+        with perf.span("track.depth_upload"):
+            K = (K.to(device=dev, dtype=torch.float32) if torch.is_tensor(K)
+                 else torch.as_tensor(np.asarray(K, np.float32), device=dev))
+            d0 = torch.as_tensor(cand["depth"], device=dev)
+            d1 = torch.as_tensor(rec["depth"], device=dev)
+        v0, n0 = build_icp_pyramids(d0, K, self.levels)
+        v1, n1 = build_icp_pyramids(d1, K, self.levels)
         best = (np.eye(4), np.inf)
         for kind in seeds:
             seed = (np.linalg.inv(cand["c2w"]) @ rec["c2w"] if kind == "est"
                     else np.eye(4))
+            with perf.span("track.prior_upload"):
+                seed = torch.as_tensor(seed, dtype=torch.float32, device=dev)
             pose10, p2p = icp_solve_all_levels(
-                torch.as_tensor(seed, dtype=torch.float32, device=dev),
-                v1, v0, n1, n0, K, self.downscales, self.iters, self.damping,
-                self.distance_threshold, self.normal_threshold, self.association)
+                seed, v1, v0, n1, n0, K, self.downscales, self.iters,
+                self.damping, self.distance_threshold, self.normal_threshold,
+                self.association)
             # one fetch: the pose and its residual
-            host = torch.cat([pose10.reshape(-1), p2p.reshape(1)]).cpu().numpy()
+            with perf.span("track.solve_fetch"):
+                host = torch.cat([pose10.reshape(-1),
+                                  p2p.reshape(1)]).cpu().numpy()
             p2p = float(host[16])
             if p2p < best[1]:
                 best = (host[:16].reshape(4, 4).astype(np.float64), p2p)

@@ -188,8 +188,13 @@ class Mapper:
     def get_total_iter(self) -> int:
         return self.iter + self.time * self.gaussian_update_iter
 
+    def _has_stable(self) -> bool:
+        with perf.span("map.stable_fetch"):
+            return self.get_stable_num > 0
+
     def _note_overflow(self, out) -> int:
-        overflow = int(out["overflow"])
+        with perf.span("map.overflow_fetch"):
+            overflow = int(out["overflow"])
         self.max_overflow = max(self.max_overflow, overflow)
         return overflow
 
@@ -216,8 +221,10 @@ class Mapper:
         else:
             out = render(gauss, camera, settings or self.settings)
         if feedback:
+            with perf.span("map.overflow_fetch"):
+                overflow = int(out["overflow"])
             self.max_feedback_overflow = max(self.max_feedback_overflow,
-                                             int(out["overflow"]))
+                                             overflow)
         else:
             self._note_overflow(out)
         return out
@@ -320,11 +327,10 @@ class Mapper:
         if not self._keyframe_predicate(frame):
             return False
         fm = self.frame_map
-        with perf.span("map.keyframe_offload"):
-            self.keyframe_list.append({
-                "frame": frame.drop_images(), "frame_id": frame_id,
-                "map": {"color_map": fm["color_map"], "depth_map": fm["depth_map"],
-                        "normal_map": fm["normal_map_w"]}})
+        self.keyframe_list.append({
+            "frame": frame.drop_images(), "frame_id": frame_id,
+            "map": {"color_map": fm["color_map"], "depth_map": fm["depth_map"],
+                    "normal_map": fm["normal_map_w"]}})
         return not is_first
 
     def update_poses(self, new_poses) -> None:
@@ -404,8 +410,10 @@ class Mapper:
                 self.state, *stacked, seq, n_iters, lrs, weights,
                 self.settings, mode, sample_ratio, mdp, max_weight,
                 self.freeze_binning)
-        prep = optimize.optimize_prepare(self.state, *stacked, self.settings,
-                                         mode, sample_ratio, mdp)
+        with perf.span("optimize.prepare"):
+            prep = optimize.optimize_prepare(self.state, *stacked,
+                                             self.settings, mode, sample_ratio,
+                                             mdp)
         Ac = max(prep.n_pool, 1)
         Tc = max(prep.n_live_tiles, 1)
         return optimize.optimize_execute(
@@ -451,7 +459,7 @@ class Mapper:
         is_final = select_keyframe_num == -1
         if is_final:
             map_ops.fix_all(self.state)
-        if self.get_stable_num == 0:
+        if not self._has_stable():
             return None
         if is_final:
             lrs = self._lrs(opt, {
@@ -538,6 +546,11 @@ class Mapper:
                 opt) -> None:
         """Map one tracked frame (``mapping`` :793); ``opt`` holds the
         optimization weights and learning rates (``OptimizationParams``)."""
+        with perf.span("map.frame"):
+            self._mapping(frame, frame_map, frame_id, opt)
+
+    def _mapping(self, frame: Camera, frame_map: Dict, frame_id: int,
+                 opt) -> None:
         self._ensure_settings(frame)
         self.frame_map = frame_map
         optimize_frame = ((self.time + 1) % self.gaussian_update_frame == 0
@@ -557,7 +570,7 @@ class Mapper:
             if is_keyframe:
                 self.global_optimization(opt, self.global_keyframe_num)
         else:
-            if not is_keyframe or self.get_stable_num <= 0:
+            if not is_keyframe or not self._has_stable():
                 self.local_optimize(frame, opt)
             else:
                 self.global_optimization(opt, self.global_keyframe_num)

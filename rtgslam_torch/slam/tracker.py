@@ -91,6 +91,10 @@ def preprocess_and_lift(depth, color, K, c2w, min_depth, max_depth,
     return _lift(fm, c2w)
 
 
+def _upload(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
 # ICP-failure gate thresholds (``tracker.py:89-90``)
 _GATE_DELTA_M = 0.01
 _GATE_COS = float(np.cos(np.deg2rad(1.0)))
@@ -200,13 +204,20 @@ class Tracker:
         self._frame_count = 0
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        """A float32 device copy of a host array: a pageable upload, one
+        wait for the stream."""
+        with perf.span("track.tensor_upload"):
+            return _upload(x, self.device)
 
     # ------------------------------------------------------------------
     def map_preprocess(self, frame: Camera, frame_id: int) -> Dict:
         """Start the frame (``map_preprocess`` :220).  The fused path defers
         all device work to :meth:`tracking`; the staged one preprocesses
         here and builds the current pyramids."""
+        with perf.span("track.preprocess"):
+            return self._map_preprocess(frame, frame_id)
+
+    def _map_preprocess(self, frame: Camera, frame_id: int) -> Dict:
         if self.K is None:
             self.K = self._tensor(frame.intrinsic)
         if self.use_orb_backend and not self._backend_camera_set:
@@ -263,31 +274,40 @@ class Tracker:
     def tracking(self, frame: Camera, frame_map: Dict) -> bool:
         """Track one frame and fill ``frame_map`` with its world-space maps
         (``tracking`` :283)."""
-        self.pose_gt.append(np.asarray(self.curr_frame["pose_gt"]))
-        self.timestamps.append(self.curr_frame["timestamp"])
-        if self.fused:
-            return self._tracking_fused(frame, frame_map)
+        with perf.span("track.frame"):
+            self.pose_gt.append(np.asarray(self.curr_frame["pose_gt"]))
+            self.timestamps.append(self.curr_frame["timestamp"])
+            if self.fused:
+                return self._tracking_fused(frame, frame_map)
+            return self._tracking_staged(frame, frame_map)
+
+    def _tracking_staged(self, frame: Camera, frame_map: Dict) -> bool:
+        """The staged path: ICP solve, pose backend, loop check."""
         success = True
         if self.use_gt_pose:
             pose_t1_w = self.pose_gt[-1]
         elif not self.status["initialized"]:
             if self.use_orb_backend:
-                self.orb_backend.process_image_rgbd(
-                    self.curr_frame["color_u8"], self.curr_frame["depth_u16"],
-                    self.curr_frame["timestamp"])
+                with perf.span("track.backend"):
+                    self.orb_backend.process_image_rgbd(
+                        self.curr_frame["color_u8"],
+                        self.curr_frame["depth_u16"],
+                        self.curr_frame["timestamp"])
             self.status["initialized"] = True
             pose_t1_w = np.eye(4)
         else:
             # success=False only on a HARD failure (the solve jumped away
             # from the motion model and the residual test fired)
-            pose_t1_t0, success = self.icp.predict_pose()
+            with perf.span("track.icp"):
+                pose_t1_t0, success = self.icp.predict_pose()
             if not success and self.loop_closer is not None:
                 # relocalize against the stored records (the reference
                 # recovers through ORB-SLAM2's relocalization)
                 guess = self.pose_es[-1] @ np.asarray(pose_t1_t0)
-                reloc = self.loop_closer.relocalize(
-                    self.curr_frame["frame_id"], guess,
-                    frame_map["depth_map"], self.K, color_map=frame.image)
+                with perf.span("track.loop_check"):
+                    reloc = self.loop_closer.relocalize(
+                        self.curr_frame["frame_id"], guess,
+                        frame_map["depth_map"], self.K, color_map=frame.image)
                 if reloc is not None:
                     pose_t1_t0 = np.linalg.inv(self.pose_es[-1]) @ reloc
                     self.icp.reset_prior(pose_t1_t0)
@@ -295,7 +315,8 @@ class Tracker:
                     self.status["relocalized"] = \
                         int(self.status.get("relocalized", 0)) + 1
             if self.use_orb_backend:
-                pose_t1_w = self._refine_with_backend(pose_t1_t0, success)
+                with perf.span("track.backend"):
+                    pose_t1_w = self._refine_with_backend(pose_t1_t0, success)
             else:
                 pose_t1_w = self.pose_es[-1] @ pose_t1_t0
 
@@ -303,9 +324,10 @@ class Tracker:
         self.pose_es.append(np.asarray(pose_t1_w))
 
         if self.loop_closer is not None and not self.use_gt_pose:
-            loop = self.loop_closer.observe(
-                self.curr_frame["frame_id"], pose_t1_w,
-                frame_map["depth_map"], self.K, color_map=frame.image)
+            with perf.span("track.loop_check"):
+                loop = self.loop_closer.observe(
+                    self.curr_frame["frame_id"], pose_t1_w,
+                    frame_map["depth_map"], self.K, color_map=frame.image)
             if loop is not None:
                 i, j, T_ij = loop
                 self.orb_backend.add_loop_constraint(i, j, T_ij)
@@ -331,8 +353,8 @@ class Tracker:
         """gt / pure-ICP tracking, one chain per frame (``_tracking_fused``
         :354)."""
         with perf.span("track.upload"):
-            depth = self._tensor(frame.depth)
-            color = self._tensor(frame.image)
+            depth = _upload(frame.depth, self.device)
+            color = _upload(frame.image, self.device)
         icp = self.icp
         success = True
         if self.use_gt_pose or not self.status["initialized"]:
@@ -381,9 +403,11 @@ class Tracker:
             success = bool(host[16])
             if not success and self.loop_closer is not None:
                 # relocalize against the stored records (staged-path twin)
-                reloc = self.loop_closer.relocalize(
-                    self.curr_frame["frame_id"], np.asarray(pose_t1_w, np.float64),
-                    fm["depth_map"], self.K, color_map=frame.image)
+                with perf.span("track.loop_check"):
+                    reloc = self.loop_closer.relocalize(
+                        self.curr_frame["frame_id"],
+                        np.asarray(pose_t1_w, np.float64), fm["depth_map"],
+                        self.K, color_map=frame.image)
                 if reloc is not None:
                     pose_t1_w = np.asarray(reloc, np.float32)
                     rel = np.linalg.inv(self._prev_c2w) @ pose_t1_w
@@ -400,9 +424,11 @@ class Tracker:
         self.pose_es.append(np.asarray(pose_t1_w))
 
         if self.loop_closer is not None and not self.use_gt_pose:
-            loop = self.loop_closer.observe(
-                self.curr_frame["frame_id"], np.asarray(pose_t1_w, np.float64),
-                fm["depth_map"], self.K, color_map=frame.image)
+            with perf.span("track.loop_check"):
+                loop = self.loop_closer.observe(
+                    self.curr_frame["frame_id"],
+                    np.asarray(pose_t1_w, np.float64), fm["depth_map"], self.K,
+                    color_map=frame.image)
             if loop is not None:
                 i, j, T_ij = loop
                 self._loops.append((i, j, np.asarray(T_ij, np.float64), 1.0))

@@ -13,8 +13,10 @@ mapping time) and, with ``pcd_densify``, the densified point cloud.
 
 The device is CUDA unless ``--device cpu`` asks for the CPU; with no GPU
 and no such flag the run stops.  ``RTG_PERF=1`` times the stages' host
-spans (``rtgslam_torch/utils/perf.py``); ``RTG_TRACE=<dir>`` writes a
-``torch.profiler`` trace of the run there.  Each stage's clock is read after a device
+spans (``rtgslam_torch/utils/perf.py``) and writes their report to
+``<save_path>/perf.json`` at the end of the run; ``RTG_TRACE=<dir>``
+writes a ``torch.profiler`` trace of the run there (with the spans'
+``stage:`` ranges under ``RTG_PERF=1``).  Each stage's clock is read after a device
 synchronize.  A config's ``frame_bands`` N > 1 (or ``--bands N``) runs
 ``slam.py``'s row-band path (``rtgslam_torch/slam/run.py::track_and_map_banded``):
 each frame is tracked once on a copy downsampled by ``band_track_stride``,
@@ -80,6 +82,7 @@ def _run(args, device, priority_source):
     from rtgslam_torch.slam.mapper import Mapper
     from rtgslam_torch.slam.run import eval_banded, track_and_map_banded
     from rtgslam_torch.slam.tracker import Tracker
+    from rtgslam_torch.utils import perf
     from rtgslam_torch.utils.general import create_workspace, sync
     from rtgslam_torch.utils.monitor import Recorder
 
@@ -175,6 +178,8 @@ def _run(args, device, priority_source):
     ate = tracker.save_traj(args.save_path)
     fps = recorder.cal_fps()
     recorder.save(args.save_path)
+    if perf.ENABLED:
+        perf.dump(os.path.join(args.save_path, "perf.json"))
     print(f"[LOG] ATE RMSE: {ate:.3f} cm  mapping FPS: {fps:.2f}  "
           f"max bin_overflow: {mapper.max_overflow} "
           f"(JAX's count, lifecycle renders: {mapper.lifecycle_overflow})")

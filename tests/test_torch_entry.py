@@ -61,6 +61,7 @@ def entry_run(tmp_path_factory):
     import metric_torch
     import slam_torch
     from rtgslam_torch.models import optimize
+    from rtgslam_torch.utils import perf
     from rtgslam_torch.utils.threefry import jax_priorities
 
     with open(REF) as f:
@@ -79,11 +80,14 @@ def entry_run(tmp_path_factory):
     try:
         mp.chdir(REPO)       # a config's relative parent: resolves from here
         mp.setattr(optimize, "optimize_execute", recording)
+        mp.setattr(perf, "ENABLED", True)     # RTG_PERF=1
+        perf.reset()
         res = slam_torch.main(["--config", cfg, "--device", "cpu"],
                               priority_source=jax_priorities())
         met = metric_torch.main(["--config", cfg, "--device", "cpu"])
     finally:
         mp.undo()
+        perf.reset()
     return ref, res, met, tp.summarize_run(str(tmp / "out")), modes
 
 
@@ -105,6 +109,17 @@ def test_entry_windowed_global_ran(entry_run):
     mapper = res["mapper"]
     assert [kf["frame"].uid for kf in mapper.keyframe_list] == mapper.optimize_frames_ids
     assert sorted(res["decode_ms"]) == list(range(ref["frames"]))
+
+
+def test_entry_writes_the_span_report(entry_run):
+    """``RTG_PERF=1``: the run's span report lands in ``perf.json`` under
+    its save path, a tracked and a mapped frame span for every frame."""
+    ref, res, _, _, _ = entry_run
+    with open(os.path.join(res["mapper"].save_path, "perf.json")) as f:
+        report = json.load(f)
+    assert report["track.frame"]["count"] == ref["frames"]
+    assert report["map.frame"]["count"] == ref["frames"]
+    assert report["map.global_optimize"]["count"] >= 1
 
 
 def test_entry_checkpoints_and_trajectory_files(entry_run):

@@ -3,10 +3,16 @@ TensorBoard scalars, on a 3-frame run of ``bench.py::run_rep``'s loop in
 both packages (96x128, a one-iteration local pass on frame 0, the port
 replaying the JAX mapper's spawn priorities).
 
-- With spans on, the port's ``report()`` has the JAX package's keys (none
-  is missing: every JAX stage has its port) with the same call counts,
-  and each entry the same fields.
+- With spans on, the port's ``report()`` has every key of the JAX
+  package's but ``NO_PORT_STAGE`` with the same call counts and JAX's
+  fields (plus ``self_s``), and beyond them exactly the port's own spans
+  (``PORT_ONLY``: the layer parents and the wait spans at its host syncs),
+  each with its count on this run.
 - With spans off, a run records nothing.
+- Spans nest per thread (``self_s`` is the time outside the direct
+  children; two threads never nest into each other's spans) and, while a
+  ``torch.profiler`` records, open ``stage:<name>`` ranges that the
+  benchmark's breakdown names its idle gaps by.
 - The ``train/*`` scalars in the port's event file are the reports its
   local pass returned, and have the JAX run's tags and step, with values
   within the optimize parity tests' 1e-5 (relative) of the JAX run's.  The
@@ -36,8 +42,29 @@ from rtgslam_tpu.utils import perf as jperf  # noqa: E402
 
 torch.set_num_threads(1)
 H, W, FRAMES = 96, 128, 3
-# JAX report keys the port has no stage for
-NO_PORT_STAGE = ()
+# JAX report keys the port has no stage for: the JAX mapper timed the
+# keyframe's copy to the host; the port's keyframe keeps its device maps (a
+# list append, no device work to time)
+NO_PORT_STAGE = ("map.keyframe_offload",)
+# the port's own spans and their calls on this run: the layer parents, the
+# stages the benchmark's per-layer metrics read, and the wait spans
+# (``*_fetch``, ``*upload``) at the host syncs of this path
+PORT_ONLY = {
+    "track.frame": FRAMES, "track.preprocess": FRAMES,
+    "track.tensor_upload": 4,      # K and the first pose; two prior poses
+    "track.intrinsics_upload": 18,  # 2 x 3 pyramid levels + 3 solve levels
+    "map.frame": FRAMES,
+    "map.camera_upload": 5,        # spawn, lifecycle, the pass; two chains
+    "map.constant_upload": 9,      # three a spawn
+    "map.overflow_fetch": 5,       # spawn and lifecycle; two a chain
+    "map.rows_fetch": 14,          # spawn 3 then 4 a frame; 1 a lifecycle
+    "map.segment_fetch": 9,        # three error sums a lifecycle
+    "render.prepare": 5,
+    "optimize.prepare": 2, "optimize.size_fetch": 2,
+    "optimize.constant_upload": 1, "optimize.iter": 1,
+    "optimize.rows_fetch": 1,
+}
+JAX_FIELDS = {"count", "total_s", "mean_ms", "median_ms"}
 SCALAR_RTOL = 1e-5     # test_torch_optimize.py::_compare_reports
 
 
@@ -103,10 +130,13 @@ def runs(tmp_path_factory):
 
 def test_report_keys_match_jax(runs):
     jrep, prep = runs[:2]
-    assert set(prep) == set(jrep) - set(NO_PORT_STAGE)
+    assert set(NO_PORT_STAGE) <= set(jrep)
+    shared = set(jrep) - set(NO_PORT_STAGE)
+    assert set(prep) == shared | set(PORT_ONLY)
     for k, v in prep.items():
-        assert set(v) == {"count", "total_s", "mean_ms", "median_ms"}
-        assert v["count"] == jrep[k]["count"], k
+        assert set(v) == JAX_FIELDS | {"self_s"}
+        want = jrep[k]["count"] if k in shared else PORT_ONLY[k]
+        assert v["count"] == want, k
     assert prep["track.upload"]["count"] == FRAMES
     assert prep["map.local_optimize"]["count"] == 1
 
@@ -151,27 +181,176 @@ def test_device_trace_writes_a_profiler_trace(tmp_path, monkeypatch):
                for e in events)
 
 
-def test_count_and_dump_match_jax(tmp_path, monkeypatch):
-    """``count`` records a measured duration as one call, as the JAX
-    package's does, only with spans on; ``dump`` writes ``report()``."""
+def test_dump_writes_the_report_of_real_spans(runs, tmp_path, monkeypatch):
+    """``dump`` writes ``report()`` of spans that ran; each of its entries
+    has JAX's four fields, with the run's counts for the JAX stages."""
     import json
 
-    perf.reset()
-    perf.count("map.counter_fetch", 0.002)
-    assert perf.report() == {}
+    jrep, prep = runs[:2]
     monkeypatch.setattr(perf, "ENABLED", True)
-    monkeypatch.setattr(jperf, "ENABLED", True)
-    jperf.reset()
+    perf.reset()
     try:
-        for mod in (perf, jperf):
-            for dt in (0.002, 0.004, 0.010):
-                mod.count("map.counter_fetch", dt)
-        assert perf.report() == jperf.report()
-        assert perf.report()["map.counter_fetch"] == {
-            "count": 3, "total_s": 0.016, "mean_ms": 5.333, "median_ms": 4.0}
+        for _ in range(3):
+            with perf.span("map.counter_fetch"):
+                torch.ones(8).sum()
         perf.dump(str(tmp_path / "perf.json"))
         with open(tmp_path / "perf.json") as f:
-            assert json.load(f) == perf.report()
+            written = json.load(f)
+        assert written == perf.report()
+        assert set(written) == {"map.counter_fetch"}
+        assert written["map.counter_fetch"]["count"] == 3
+        assert set(jrep["map.counter_fetch"]) == JAX_FIELDS
+        assert set(written["map.counter_fetch"]) - {"self_s"} == JAX_FIELDS
+        assert prep["map.counter_fetch"]["count"] == jrep["map.counter_fetch"]["count"]
     finally:
         perf.reset()
-        jperf.reset()
+
+
+@pytest.fixture
+def spans_on(monkeypatch):
+    monkeypatch.setattr(perf, "ENABLED", True)
+    perf.reset()
+    yield
+    perf.reset()
+
+
+def test_self_time_is_total_less_the_direct_children(spans_on):
+    import time
+
+    with perf.span("outer"):
+        time.sleep(0.01)
+        for _ in range(2):
+            with perf.span("inner"):
+                time.sleep(0.005)
+                with perf.span("leaf"):
+                    time.sleep(0.005)
+    rep = perf.report()
+    assert perf.current() is None
+    assert rep["outer"]["count"] == 1 and rep["inner"]["count"] == 2
+    # the grandchild is charged to its parent, not to the outer span
+    assert rep["outer"]["self_s"] == pytest.approx(
+        rep["outer"]["total_s"] - rep["inner"]["total_s"], abs=2e-4)
+    assert rep["inner"]["self_s"] == pytest.approx(
+        rep["inner"]["total_s"] - rep["leaf"]["total_s"], abs=2e-4)
+    assert rep["leaf"]["self_s"] == rep["leaf"]["total_s"]
+    assert rep["outer"]["self_s"] >= 0.0095
+
+
+def test_two_threads_spans_do_not_nest(spans_on):
+    """The pipelined system's tracker and mapper threads: each span's
+    parent is on its own thread's stack."""
+    import threading
+
+    opened = threading.Barrier(2)
+    seen = {}
+
+    def worker(name):
+        with perf.span(name):
+            opened.wait()          # both spans open at once
+            seen[name] = perf.current()
+            opened.wait()
+
+    threads = [threading.Thread(target=worker, args=(n,))
+               for n in ("track.frame", "map.frame")]
+    with perf.span("main"):
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert perf.current() == "main"
+    rep = perf.report()
+    assert seen == {"track.frame": "track.frame", "map.frame": "map.frame"}
+    # neither thread's span is a child of the main thread's or of the other
+    assert rep["main"]["self_s"] == rep["main"]["total_s"]
+    for name in ("track.frame", "map.frame"):
+        assert rep[name]["self_s"] == rep[name]["total_s"]
+
+
+def test_threads_lose_no_span(spans_on):
+    """More threads than cores, each timing nested spans, with the switch
+    interval shortened: every call is recorded, and each thread's outer
+    span has its own inner ones as children."""
+    import threading
+
+    threads_n, calls = 2 * (os.cpu_count() or 1) + 2, 300
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def worker():
+            for _ in range(calls):
+                with perf.span("outer"):
+                    with perf.span("inner"):
+                        pass
+
+        threads = [threading.Thread(target=worker) for _ in range(threads_n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    rep = perf.report()
+    assert rep["outer"]["count"] == rep["inner"]["count"] == threads_n * calls
+    assert perf.current() is None
+
+
+def _work():
+    with perf.span("render.prepare"):
+        (torch.ones(16, 16) @ torch.ones(16, 16)).sum()
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_a_span_is_a_profiler_range_only_while_it_records(on, monkeypatch):
+    """With spans on, a span opens ``stage:<name>`` in a recording
+    ``torch.profiler`` (CPU); not outside a profile, and never with spans
+    off."""
+    monkeypatch.setattr(perf, "ENABLED", on)
+    from torch.autograd import profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    opened = []
+    enter = profiler.record_function.__enter__
+    monkeypatch.setattr(profiler.record_function, "__enter__",
+                        lambda self: opened.append(self.name) or enter(self))
+    perf.reset()
+    try:
+        _work()                               # no profiler recording
+        assert opened == []
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _work()
+        names = [e.name() for e in prof.profiler.kineto_results.events()]
+    finally:
+        perf.reset()
+    assert ("stage:render.prepare" in names) is on
+    assert opened == (["stage:render.prepare"] if on else [])
+
+
+def test_the_breakdown_names_a_gap_inside_a_span_by_the_span(spans_on):
+    """``benchmark/trace.py::_host_activity`` names a time inside a program
+    span by that span (the innermost ``stage:`` range)."""
+    import importlib.util
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    # benchmark/trace.py, by its path (its name is also a standard module's)
+    bench_dir = os.path.join(REPO, "benchmark")
+    sys.path.insert(0, bench_dir)
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "benchmark_trace", os.path.join(bench_dir, "trace.py"))
+        bench_trace = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(bench_trace)
+    finally:
+        sys.path.remove(bench_dir)
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with perf.span("track.frame"):
+            with perf.span("track.backend"):
+                time.sleep(0.02)          # host code outside any aten op
+    host = sorted((e for e in bench_trace._events(prof) if not e[1]),
+                  key=lambda e: e[2])
+    (backend,) = [e for e in host if e[0] == "stage:track.backend"]
+    assert bench_trace._host_activity(host, (backend[2] + backend[3]) / 2) == \
+        "track.backend: host code outside any recorded op"
