@@ -8,6 +8,8 @@ order [rot, trans] and the left-Jacobian exponential match ``exp_se3``.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -118,16 +120,21 @@ def point2plane_loss(p_t0, p_t1, n_t0) -> torch.Tensor:
     return torch.mean(d * d)
 
 
-def icp_solve_all_levels(pose10, vertex1_pyr, vertex0_pyr, normal1_pyr,
-                         normal0_pyr, K, downscales, iters, damping: float,
-                         distance_threshold: float, normal_threshold: float,
-                         association: str):
-    """Coarse-to-fine GN over every pyramid level, then the failure metric
-    (``icp_solve_all_levels`` :164).  Returns (pose10, p2p loss)."""
+def level_intrinsics(K: torch.Tensor, s: float) -> torch.Tensor:
+    """K scaled by ``s`` with ``[2, 2] = 1``: device ops only (the entry is
+    filled from a Python scalar, no host tensor is copied), so the host
+    does not wait and a graph capture may hold it."""
+    Ks = K * s
+    Ks[2, 2].fill_(1.0)
+    return Ks
+
+
+def _solve(pose10, vertex1_pyr, vertex0_pyr, normal1_pyr, normal0_pyr, K,
+           downscales, iters, damping, distance_threshold, normal_threshold,
+           association):
+    """The solve itself, eager: what a graph captures and replays."""
     for level, n_iter in enumerate(iters):
-        Ks = K * downscales[level]
-        with perf.span("track.intrinsics_upload"):   # a host scalar
-            Ks[2, 2] = 1.0
+        Ks = level_intrinsics(K, downscales[level])
         v1, v0 = vertex1_pyr[level], vertex0_pyr[level]
         n1, n0 = normal1_pyr[level], normal0_pyr[level]
         H, W = v1.shape[:2]
@@ -144,14 +151,102 @@ def icp_solve_all_levels(pose10, vertex1_pyr, vertex0_pyr, normal1_pyr,
     return pose10, p2p
 
 
+# A captured solve per key: the inputs' shapes and dtypes and the settings
+# baked into its kernels, and where it replays (device, thread, stream: a
+# graph's static inputs serve one caller at a time).  A process keeps every
+# graph it captures, so later sessions and the loop closer's verifying
+# solves replay the first one's; a key past the bound runs eager.
+MAX_GRAPHS = 8
+_graphs = {}
+_graphs_lock = threading.Lock()
+
+
+class _SolveGraph:
+    """:func:`_solve` captured once as a CUDA graph: static inputs that
+    each call copies its tensors into, and static outputs it clones."""
+
+    def __init__(self, inputs, levels, settings):
+        dev = inputs[0].device
+        self.levels = levels
+        caller = torch.cuda.current_stream(dev)
+        self.static = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                       for t in inputs]
+        for dst, src in zip(self.static, inputs):
+            dst.copy_(src)
+        # warm up on the capture stream first (torch's recipe): the cuBLAS
+        # and cuSOLVER handles and workspaces of that stream are made there
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            _solve(*self._args(self.static), *settings)
+            self.graph = torch.cuda.CUDAGraph()
+            # thread-local: the pipelined system's mapper thread launches
+            # work while the tracker thread captures.  Until capture_end the
+            # default CUDA generator is the capture's: the mapper draws from
+            # a generator of its own (slam/mapper.py)
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.pose10, self.p2p = _solve(*self._args(self.static),
+                                               *settings)
+            finally:
+                self.graph.capture_end()
+        caller.wait_stream(side)
+
+    def _args(self, t):
+        """The flat static inputs as :func:`_solve`'s first arguments."""
+        n = self.levels
+        return (t[0], *(t[1 + i * n:1 + (i + 1) * n] for i in range(4)), t[-1])
+
+    def __call__(self, inputs):
+        for dst, src in zip(self.static, inputs):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.pose10.clone(), self.p2p.clone()
+
+
+def icp_solve_all_levels(pose10, vertex1_pyr, vertex0_pyr, normal1_pyr,
+                         normal0_pyr, K, downscales, iters, damping: float,
+                         distance_threshold: float, normal_threshold: float,
+                         association: str):
+    """Coarse-to-fine GN over every pyramid level, then the failure metric
+    (``icp_solve_all_levels`` :164).  Returns (pose10, p2p loss).
+
+    On a CUDA device the first solve of each key is captured as a CUDA
+    graph (span ``track.solve_capture``) and every later one replays it
+    (``track.solve_replay``): the same kernels, one launch.  CPU tensors
+    run eager."""
+    settings = (tuple(float(s) for s in downscales), tuple(int(n) for n in iters),
+                float(damping), float(distance_threshold),
+                float(normal_threshold), str(association))
+    with perf.span("track.solve"):
+        if pose10.device.type != "cuda":
+            return _solve(pose10, vertex1_pyr, vertex0_pyr, normal1_pyr,
+                          normal0_pyr, K, *settings)
+        inputs = (pose10, *vertex1_pyr, *vertex0_pyr, *normal1_pyr,
+                  *normal0_pyr, K)
+        key = (pose10.device, threading.get_ident(),
+               torch.cuda.current_stream(pose10.device).cuda_stream,
+               tuple((t.shape, t.dtype) for t in inputs), settings)
+        graph = _graphs.get(key)
+        if graph is not None:
+            with perf.span("track.solve_replay"):
+                return graph(inputs)
+        with _graphs_lock:
+            if len(_graphs) < MAX_GRAPHS:
+                with perf.span("track.solve_capture"):
+                    graph = _graphs[key] = _SolveGraph(
+                        inputs, len(vertex1_pyr), settings)
+                    return graph(inputs)
+        return _solve(pose10, vertex1_pyr, vertex0_pyr, normal1_pyr,
+                      normal0_pyr, K, *settings)
+
+
 def build_icp_pyramids(depth: torch.Tensor, K: torch.Tensor, levels: int):
     """Depth -> per-level (vertex, normal) maps from the max-pooled depth
     pyramid with per-level intrinsics (``build_icp_pyramids`` :211)."""
     vertex, normal = [], []
     for i, d in enumerate(preprocess.depth_pyramid(depth, levels)):
-        Ks = K * (1.0 / (1 << (levels - 1 - i)))
-        with perf.span("track.intrinsics_upload"):   # a host scalar
-            Ks[2, 2] = 1.0
+        Ks = level_intrinsics(K, 1.0 / (1 << (levels - 1 - i)))
         vm = preprocess.compute_vertex_map(d, Ks)
         vertex.append(vm)
         normal.append(preprocess.compute_normal_map(vm))

@@ -52,7 +52,7 @@ NO_PORT_STAGE = ("map.keyframe_offload",)
 PORT_ONLY = {
     "track.frame": FRAMES, "track.preprocess": FRAMES,
     "track.tensor_upload": 4,      # K and the first pose; two prior poses
-    "track.intrinsics_upload": 18,  # 2 x 3 pyramid levels + 3 solve levels
+    "track.solve": 2,              # one ICP solve a frame after the first
     "map.frame": FRAMES,
     "map.camera_upload": 5,        # spawn, lifecycle, the pass; two chains
     "map.constant_upload": 9,      # three a spawn
