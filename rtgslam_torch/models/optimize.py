@@ -28,6 +28,10 @@ Two formulations, as in the JAX package:
     ``optimize_freeze_binning``, projects every iteration over a depth
     order and tile lists frozen once per call (``render_fixed_binning``).
 
+On a CUDA device a compact pass replays the parts of its iteration around
+K1, K2 and Adam as CUDA graphs (:class:`CompactStages`), with the same
+bits as the eager iteration.
+
 The JAX package buckets the compact sizes to powers of two for its static
 shapes; here the pool and tile counts are used as they are, and the list
 crop keeps the chunk boundaries (:func:`list_crop`).  The map state is
@@ -36,14 +40,17 @@ updated in place.
 
 from __future__ import annotations
 
+import threading
+from contextlib import nullcontext
 from typing import Dict, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from ..ops import preprocess
-from ..ops.rasterize import binning
-from ..ops.rasterize.api import (RasterSettings, render, render_compact,
+from ..ops.rasterize import binning, blend
+from ..ops.rasterize.api import (RasterSettings, compact_feature_rows,
+                                 compact_outputs, render, render_compact,
                                  render_fixed_binning, render_transmission,
                                  transmission_rows)
 from ..ops.rasterize.blend import CHUNK, RowIndex, blend_transmission, row_index
@@ -130,15 +137,21 @@ def _attach_loss(params, update_mask, hyper):
                      + row_l2(params["rotation"], hyper["hist_rotation_raw"]))
 
 
-def _total(out, frame, params, update_mask, hyper):
+def _image_total(out, frame, hyper):
+    """The weighted image losses of a render and the report without the
+    attach term."""
     color_loss, depth_loss, normal_loss = _image_losses(out, frame, hyper)
-    attach_loss = _attach_loss(params, update_mask, hyper)
     total = (hyper["color_weight"] * color_loss
              + hyper["depth_weight"] * depth_loss
              + hyper["normal_weight"] * normal_loss)
-    report = {"total": total, "color": color_loss, "depth": depth_loss,
-              "normal": normal_loss, "attach": attach_loss}
-    return total + attach_loss, report
+    return total, {"total": total, "color": color_loss, "depth": depth_loss,
+                   "normal": normal_loss}
+
+
+def _total(out, frame, params, update_mask, hyper):
+    total, report = _image_total(out, frame, hyper)
+    report["attach"] = _attach_loss(params, update_mask, hyper)
+    return total + report["attach"], report
 
 
 def _loss_fn(params, aux, frame, settings: RasterSettings, hyper):
@@ -240,17 +253,24 @@ def bump_confidence(confidence, grads, update_mask):
 
 
 def _iterate(params, confidence, loss_fn, frame_of, frame_seq, n_iters: int,
-             lrs, update_mask):
+             lrs, update_mask, stages=None):
     """The render -> loss -> gradient -> Adam -> confidence loop shared by
-    both formulations (``run_optimize`` :220-242).  Returns (params,
-    confidence, the last iteration's report)."""
+    both formulations (``run_optimize`` :220-242).  ``stages``, a compact
+    pass's :class:`CompactStages`, takes the gradient in place of
+    :func:`loss_grads` over ``loss_fn``.  Returns (params, confidence, the
+    last iteration's report)."""
     zeros = {k: torch.zeros_like(p) for k, p in params.items()}
     m, v = zeros, {k: z.clone() for k, z in zeros.items()}
     report = {k: torch.zeros((), device=confidence.device) for k in REPORT_KEYS}
     for i in range(n_iters):
         with perf.span("optimize.iter"):
-            frame = frame_of(int(frame_seq[i]))
-            grads, report = loss_grads(lambda p: loss_fn(p, frame), params)
+            f = int(frame_seq[i])
+            if stages is None:
+                frame = frame_of(f)
+                grads, report = loss_grads(lambda p: loss_fn(p, frame),
+                                           params)
+            else:
+                grads, report = stages(i, f, params)
             params, m, v = _adam_step(params, grads, m, v, i, lrs,
                                       update_mask)
             confidence = bump_confidence(confidence, grads, update_mask)
@@ -460,6 +480,221 @@ def compact_problem(state: MapState, colors, depths, normals, w2cs, Ks,
                    frames=frames)
 
 
+# A compact pass of at least this many iterations replays its stages as
+# CUDA graphs; a shorter one runs eager.  On an H100 at 480x640 a capture
+# took 27-44 ms, an eager iteration ~30 ms and a replayed one ~6 ms, so the
+# capture pays for itself within a few iterations (PERF.md §6).
+REPLAY_MIN_ITERS = 10
+
+_graph_local = threading.local()   # .pools: device -> (CUDAGraph, Stream)
+
+
+def use_stages(device: torch.device, n_iters: int, blend_for) -> bool:
+    """Whether a compact pass replays its stages as CUDA graphs
+    (:class:`CompactStages`): on a CUDA device, with the one-device blend,
+    and from :data:`REPLAY_MIN_ITERS` iterations on."""
+    return (device.type == "cuda" and blend_for is None
+            and n_iters >= REPLAY_MIN_ITERS)
+
+
+def _graph_pool(device: torch.device):
+    """The calling thread's graph memory pool and capture stream on
+    ``device``, kept while the thread lives.  Every pass captures into the
+    same pool from the same stream, so it reuses the memory of the last
+    pass's graphs, which died with their pass.  A pool lives while a graph
+    captured into it does: a one-op graph that is never replayed holds it
+    (torch's allocators assert when a capture names a pool with no live
+    graph, a ``MemPool``'s included)."""
+    pools = getattr(_graph_local, "pools", None)
+    if pools is None:
+        pools = _graph_local.pools = {}
+    if device not in pools:
+        side = torch.cuda.Stream(device)
+        holder = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            holder.capture_begin(capture_error_mode="thread_local")
+            try:
+                torch.zeros((1,), device=device)
+            finally:
+                holder.capture_end()
+        pools[device] = (holder, side)
+    holder, side = pools[device]
+    return holder.pool(), side
+
+
+class _Seed(torch.autograd.Function):
+    """``_Seed.apply(*outputs, *cotangents)``: a scalar whose gradient
+    hands each output its cotangent as given, so ``autograd.grad`` of it is
+    ``autograd.grad(outputs, inputs, cotangents)`` without that form's size
+    check, which imports torch's symbolic-shape module once a process
+    (4.5-7 s on the H100 host of PERF.md §6)."""
+
+    @staticmethod
+    def forward(ctx, *pairs):
+        ctx.save_for_backward(*pairs[len(pairs) // 2:])
+        return pairs[0].new_empty(())
+
+    @staticmethod
+    def backward(ctx, _):
+        cots = ctx.saved_tensors
+        return (*cots, *(None,) * len(cots))
+
+
+def _seeded_grad(outputs, inputs, cotangents):
+    """``autograd.grad(outputs, inputs, cotangents)`` through :class:`_Seed`;
+    None for an input the outputs do not reach."""
+    return torch.autograd.grad(_Seed.apply(*outputs, *cotangents), inputs,
+                               allow_unused=True)
+
+
+class CompactStages:
+    """A compact pass's gradient in five steps, for :func:`_iterate`:
+
+    1. stage A: the pool's raw rows to the blend rows, the derived normals
+       the render's normal map reads, and the attach loss;
+    2. K1 (:func:`blend.blend_tiles_fused`) on stage A's rows;
+    3. stage C: the tile outputs into the image, the image losses and their
+       cotangents, forward and backward;
+    4. K2, reached through autograd on K1's outputs
+       (``BlendFunction.backward`` calls ``blend.blend_bwd``);
+    5. stage A's backward, fed K2's row gradient and stage C's cotangents.
+
+    Bitwise :func:`loss_grads` over :func:`_loss_fn_compact`: each stage runs
+    the same operations, and autograd runs a graph's nodes newest first,
+    so each parameter's gradient terms add up in the same order as in the
+    whole iteration's graph, where the attach loss is made last and its
+    terms come first.  Stage A makes the attach loss last too, and its
+    backward is one ``autograd.grad`` over all of its outputs.
+
+    The stages read fixed tensors that each step copies its values into:
+    the parameters, the frame's index into the pass's stacked frames, K1's
+    outputs and K2's row gradient.  On CUDA the second step captures stages
+    A, C and A's backward as three CUDA graphs in one memory pool (span
+    ``optimize.capture``) and that step and every later one replay them
+    (span ``optimize.replay``); the first step runs them eager, which loads
+    every kernel the capture records.  The graphs die with the object, at
+    the end of its pass.  On the CPU every step runs eager."""
+
+    def __init__(self, cp: Compact, settings: RasterSettings,
+                 n_tiles_full: int):
+        self.cp, self.settings, self.n_tiles_full = cp, settings, n_tiles_full
+        dev = cp.rows.device
+        Ac, Tc = cp.rows.shape[0], cp.frames["tile_rows"].shape[1]
+        self.graphs = None
+        self.leaves = {k: torch.empty_like(cp.params[k]).requires_grad_()
+                       for k in PARAM_KEYS}
+        self.idx = torch.zeros((1,), dtype=torch.int64, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        px = (Tc, blend.NPIX)
+        self.tiles = blend.TileOutputs(
+            color=torch.empty(px + (3,), **f32, requires_grad=True),
+            depth=torch.empty(px, **f32, requires_grad=True),
+            depth_index=torch.empty(px, dtype=torch.int32, device=dev),
+            color_index=torch.empty(px, dtype=torch.int32, device=dev),
+            depth_weight=torch.empty(px, **f32),
+            color_weight=torch.empty(px, **f32), T_final=torch.empty(px, **f32))
+        self.g_feat = torch.empty((Ac + 1, blend.NFEAT), **f32)
+        self.one = torch.ones((), **f32)
+        self.ident = torch.arange(Ac, dtype=torch.int32, device=dev)
+
+    def _frame(self, keys):
+        """The step's frame, gathered by the device index."""
+        return {k: self.cp.frames[k].index_select(0, self.idx)[0]
+                for k in keys}
+
+    def _stage_a(self):
+        with torch.enable_grad():
+            cam = self._frame(("w2c", "K", "campos"))
+            gauss = compact_gaussians(self.leaves, self.cp.row_valid)
+            feat = compact_feature_rows(gauss, cam, self.settings)
+            # made last, so its gradient terms are summed first (see above)
+            attach = _attach_loss(self.leaves, self.cp.update, self.cp.hyper)
+        self.a_out = (feat, gauss["normal"], attach)
+        self.feat = feat.detach().requires_grad_()
+        self.normal = gauss["normal"].detach().requires_grad_()
+
+    def _stage_c(self):
+        with torch.enable_grad():
+            frame = self._frame(("color", "depth", "normal", "render_mask",
+                                 "tile_rows"))
+            out = compact_outputs(self.tiles, self.normal, frame["tile_rows"],
+                                  self.n_tiles_full, self.settings)
+            total, report = _image_total(out, frame, self.cp.hyper)
+            self.cot = torch.autograd.grad(
+                total, (self.tiles.color, self.tiles.depth, self.normal))
+        self.report = {k: x.detach() for k, x in report.items()}
+
+    def _stage_a_bwd(self):
+        leaves = [self.leaves[k] for k in PARAM_KEYS]
+        grads = _seeded_grad(self.a_out, leaves,
+                             (self.g_feat, self.cot[2], self.one))
+        self.grads = {k: torch.zeros_like(x) if g is None else g
+                      for k, x, g in zip(PARAM_KEYS, leaves, grads)}
+
+    def _run(self, n: int):
+        if self.graphs is None:
+            (self._stage_a, self._stage_c, self._stage_a_bwd)[n]()
+        else:
+            self.graphs[n].replay()
+
+    def _capture(self):
+        dev = self.idx.device
+        pool, side = _graph_pool(dev)
+        caller = torch.cuda.current_stream(dev)
+        self.a_out = self.feat = self.normal = self.cot = self.grads = None
+        side.wait_stream(caller)
+        graphs = []
+        with torch.cuda.stream(side):
+            for stage in (self._stage_a, self._stage_c, self._stage_a_bwd):
+                graph = torch.cuda.CUDAGraph()
+                # thread-local: the pipelined system's tracker thread may
+                # launch and wait while the mapper thread captures
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    stage()
+                finally:
+                    graph.capture_end()
+                graphs.append(graph)
+        caller.wait_stream(side)
+        self.graphs = graphs
+
+    def __call__(self, i: int, f: int, params):
+        """(gradients, report) of step ``i`` on frame ``f`` at ``params``."""
+        fr, s = self.cp.frames, self.settings
+        with torch.no_grad():
+            for k in PARAM_KEYS:
+                self.leaves[k].copy_(params[k])
+            self.idx.fill_(f)
+        if self.graphs is None and i > 0 and self.idx.device.type == "cuda":
+            with perf.span("optimize.capture"):
+                self._capture()
+        with perf.span("optimize.replay") if self.graphs else nullcontext():
+            self._run(0)
+            index = (RowIndex(fr["row_ptr_c"][f], fr["pos_c"][f])
+                     if "row_ptr_c" in fr else None)
+            with torch.enable_grad():
+                out = blend.blend_tiles_fused(
+                    self.feat, self.ident, fr["tile_lists_c"][f],
+                    fr["tile_counts_c"][f], fr["tile_origins"][f],
+                    s.opaque_threshold, s.T_threshold, index)
+            with torch.no_grad():
+                for dst, src in zip(self.tiles, out):
+                    dst.copy_(src)
+            self._run(1)
+            g_feat, = _seeded_grad((out.color, out.depth), (self.feat,),
+                                   self.cot[:2])
+            with torch.no_grad():
+                self.g_feat.copy_(g_feat)
+            self._run(2)
+            grads = self.grads
+            report = dict(self.report, attach=self.a_out[2].detach())
+            if self.graphs is not None:   # the next replay rewrites them
+                grads = {k: g.clone() for k, g in grads.items()}
+                report = {k: x.clone() for k, x in report.items()}
+        return grads, report
+
+
 def optimize_execute(state: MapState, colors, depths, normals, w2cs, Ks,
                      camposes, rmasks, lists_orig, counts,
                      pool_rows: torch.Tensor, n_pool: int,
@@ -492,10 +727,13 @@ def optimize_execute(state: MapState, colors, depths, normals, w2cs, Ks,
         return dict({k: x[f] for k, x in fr.items()},
                     n_tiles_full=n_tiles_full, blend_fn=blends[f])
 
+    stages = (CompactStages(cp, settings, n_tiles_full)
+              if use_stages(cp.rows.device, n_iters, blend_for) else None)
     params_c, conf_c, report = _iterate(
         cp.params, state.confidence[cp.rows],
         lambda p, frame: _loss_fn_compact(p, aux, frame, settings, cp.hyper),
-        frame_of, frame_seq, n_iters, lrs, cp.update)
+        frame_of, frame_seq, n_iters, lrs, cp.update, stages)
+    del stages   # the pass's graphs and their memory
 
     # ---- scatter the valid rows back into the map ---------------------------
     with torch.no_grad():

@@ -272,13 +272,22 @@ def render_compact(gaussians_c: Dict[str, torch.Tensor],
     which the backward's reduce kernel reads (on CUDA, built per backward
     when None).  ``blend_fn`` replaces :func:`blend.blend_tiles_fused` (same
     arguments; the tile-sharded blend of ``parallel/sp_optimize.py``)."""
-    H, W = settings.height, settings.width
     feat = compact_feature_rows(gaussians_c, camera, settings)
     ident = torch.arange(feat.shape[0] - 1, dtype=torch.int32,
                          device=feat.device)
     tiles = (blend_fn or blend.blend_tiles_fused)(
         feat, ident, tile_lists_c, tile_counts_c, tile_origins,
         settings.opaque_threshold, settings.T_threshold, index)
+    return compact_outputs(tiles, gaussians_c["normal"], tile_rows,
+                           n_tiles_full, settings)
+
+
+def compact_outputs(tiles: blend.TileOutputs, normals: torch.Tensor,
+                    tile_rows: torch.Tensor, n_tiles_full: int,
+                    settings: RasterSettings) -> Dict[str, torch.Tensor]:
+    """:func:`render_compact`'s output dict from its blend's outputs over
+    the grid tiles ``tile_rows``: scattered into the full ``n_tiles_full``
+    grid, every other tile at the zero-trip values, then assembled."""
     rows = tile_rows.long()
 
     def put(fill, x):
@@ -292,9 +301,10 @@ def render_compact(gaussians_c: Dict[str, torch.Tensor],
         depth_weight=put(0.0, tiles.depth_weight),
         color_weight=put(0.0, tiles.color_weight),
         T_final=put(1.0, tiles.T_final))
-    return _assemble_outputs(tiles, gaussians_c["normal"],
+    return _assemble_outputs(tiles, normals,
                              torch.zeros((), dtype=torch.int32,
-                                         device=feat.device), H, W)
+                                         device=normals.device),
+                             settings.height, settings.width)
 
 
 def render_model_and_stable(gaussians: Dict[str, torch.Tensor],

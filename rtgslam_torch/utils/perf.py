@@ -95,6 +95,11 @@ def current() -> Optional[str]:
     return stack[-1].name if stack else None
 
 
+def open_spans() -> tuple:
+    """The calling thread's open spans, outermost first."""
+    return tuple(s.name for s in _stack())
+
+
 def is_wait(name: str) -> bool:
     """Whether the span ``name`` wraps a host wait for the stream."""
     return name.endswith(WAIT_SUFFIXES)

@@ -9,8 +9,11 @@ and ``update_last_status``; frame 0's gradient pass and one later one run
 in both.  The step runs under ``torch.cuda.set_sync_debug_mode("warn")``,
 and every synchronizing call torch flags must happen inside a span whose
 name follows the wait rule of ``utils/perf.py`` (``*_fetch``,
-``*upload``); each wait span must hold at least one such call.  Prints the
-syncs and the wait spans per frame of each configuration.
+``*upload``); each wait span must hold at least one such call.  The
+compact passes replay their stages as CUDA graphs from their second
+iteration on (``optimize.replay``), and no replayed iteration may hold a
+sync at all.  Prints the syncs and the wait spans per frame of each
+configuration.
 
 On a machine with an NVIDIA GPU (the tests' conftest needs JAX):
 
@@ -73,8 +76,8 @@ def _port_frame() -> str:
 
 def _run_frames(config, device):
     """Six frames of ``config``'s step under the sync debug mode; returns
-    the flagged calls as (innermost span, port frame) and the spans'
-    report."""
+    the flagged calls as (innermost span, port frame, every open span) and
+    the spans' report."""
     import scene
     import session
 
@@ -88,7 +91,8 @@ def _run_frames(config, device):
 
     def record(message, category, filename, lineno, file=None, line=None):
         if SYNC_MESSAGE in str(message):
-            flagged.append((perf.current(), _port_frame()))
+            flagged.append((perf.current(), _port_frame(),
+                            perf.open_spans()))
 
     perf.reset()
     for i, cam in enumerate(session.cameras(seq)):
@@ -122,9 +126,11 @@ def test_every_sync_is_inside_a_wait_span(config, device, monkeypatch):
         flagged, report = _run_frames(config, device)
     finally:
         perf.reset()
-    outside = Counter((span, where) for span, where in flagged
+    outside = Counter((span, where) for span, where, _ in flagged
                       if span is None or not perf.is_wait(span))
-    by_span = Counter(span for span, _ in flagged)
+    by_span = Counter(span for span, _, _ in flagged)
+    in_replay = Counter((span, where) for span, where, stack in flagged
+                        if "optimize.replay" in stack)
     waits = {k: v["count"] for k, v in report.items() if perf.is_wait(k)}
     print("[sync] " + json.dumps({
         "config": config, "frames": FRAMES,
@@ -136,9 +142,14 @@ def test_every_sync_is_inside_a_wait_span(config, device, monkeypatch):
             n for k, n in waits.items()
             if k.startswith(("map.", "optimize.", "render."))) / FRAMES,
         "syncs_by_span": dict(sorted(by_span.items(), key=str)),
+        "replayed_iterations": report.get("optimize.replay", {}).get("count", 0),
         "wait_spans": waits}))
     assert flagged, "torch flagged no sync: is the debug mode on?"
     assert not outside, "syncs outside a wait span: " + json.dumps(
         [[str(s), w, n] for (s, w), n in sorted(outside.items(), key=str)])
     empty = {k: (n, by_span[k]) for k, n in waits.items() if by_span[k] < n}
     assert not empty, f"wait spans that held no sync (calls, syncs): {empty}"
+    assert report.get("optimize.replay", {}).get("count"), \
+        "no compact iteration replayed its stages"
+    assert not in_replay, "syncs inside a replayed iteration: " + json.dumps(
+        [[str(s), w, n] for (s, w), n in sorted(in_replay.items(), key=str)])
