@@ -18,6 +18,11 @@ Phases (any failure exits non-zero, and nothing falls back to the CPU):
       the same tiles;
   3d. K2 with the reduce against the plain backward on the same tiles,
       twice, bitwise equal;
+  3f. the bilateral depth filter's kernel (csrc/bilateral.cu) against its
+      plain loop at 480x640 and 680x1200 on Kinect-noisy depth with holes
+      (tests/torch_parity.py::kinect_depth), bitwise; the kernel's time and
+      bound, both host times with a synchronize, and in one profile the
+      kernel's one launch and the loop's 900 with their summed device time;
   4.  the forward-only loop (both iteration counts 0) at 170x300 x 12
       frames against the JAX-on-CPU reference tests/data/slice_170x300_jax_cpu.json;
   4b. the loop with gradient optimization (bench.make_args unchanged) at
@@ -87,7 +92,8 @@ Phases (any failure exits non-zero, and nothing falls back to the CPU):
       at TUM's 480x640, 12 frames out and 11 back with a check every frame:
       ATE <= 1 cm, PSNR >= 27.5, overflow 0, a loop closed, the split of the
       tracking time (ICP, backend, loop check), K1 and K2 on the run's own
-      launches against their twins;
+      launches against their twins; in both runs the bilateral kernel
+      launches once for every filtered frame (at 480x640, every frame);
   7b. slam_mp_torch.py (tracker and mapper threads, each on its own CUDA
       stream): at 170x300 with strict sync every frame, twice (equal ATE,
       PSNR and rows) and against tests/data/mp_170x300_jax_cpu.json; at
@@ -305,6 +311,14 @@ K2_TERM_OPS = 50
 # NVIDIA H100 SXM at 700 W, dense FP32 outside the tensor cores and HBM3
 # (NVIDIA's data sheet)
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+
+
+# the bilateral filter's FP32 operations a pixel (csrc/bilateral.cu): 81
+# taps of 9 (expf counted as one) and 3 to finish
+BILATERAL_OPS = 81 * 9 + 3
+# the plain loop's kernels a call on torch 2.11 (copies and memsets left
+# out): 81 taps of 11 elementwise ops, the pad, two zeros_like, 4 to finish
+PLAIN_FILTER_KERNELS = 900
 
 
 def fail(msg):
@@ -1223,6 +1237,35 @@ def counted(fn):
     return out, dict(blend.launches)
 
 
+def filtered_run(label, fn):
+    """counted(fn), failing unless fn's run launched the bilateral kernel
+    once for every frame the tracker preprocessed with the depth filter on,
+    and filtered a frame.  Returns (fn's result, its launch counts, the
+    filtered frames)."""
+    from rtgslam_torch.ops import preprocess
+    from rtgslam_torch.slam import tracker
+
+    plain = tracker.preprocess_frame
+    sig = inspect.signature(plain)
+    filtered = [0]
+
+    def counting(*a, **k):
+        filtered[0] += bool(sig.bind(*a, **k).arguments["use_filter"])
+        return plain(*a, **k)
+
+    preprocess.reset_launches()
+    tracker.preprocess_frame = counting
+    try:
+        out, launches = counted(fn)
+    finally:
+        tracker.preprocess_frame = plain
+    n = preprocess.launches["bilateral"]
+    if not n == filtered[0] >= 1:
+        fail(f"{label}: the bilateral kernel launched {n} times for "
+             f"{filtered[0]} filtered frames")
+    return out, launches, n
+
+
 def add_counts(*counts):
     return {k: sum(c[k] for c in counts) for k in KERNELS}
 
@@ -1265,7 +1308,8 @@ def loop_sequence(cams):
 def phase_7a(work, dev, smi):
     """The TUM operating point: the entry points at 170x300 against the
     JAX reference, then the 480x640 out-and-back run.  Returns (launch
-    counts, check_launch's result on the run's local optimize launch)."""
+    counts, check_launch's result on the run's local optimize launch, the
+    bilateral kernel's launches)."""
     import torch_parity
     from rtgslam_torch.data.synthetic import make_cameras
     from rtgslam_torch.models import optimize
@@ -1283,7 +1327,8 @@ def phase_7a(work, dev, smi):
     cfg = torch_parity.write_child_config(
         os.path.join(work, "orb170.yaml"), torch_parity.ROOM_YAML,
         os.path.join(work, "scene170"), save, oref["overrides"])
-    (res, _), la = counted(lambda: run_entry_points(cfg, threefry.jax_priorities()))
+    (res, _), la, fa = filtered_run(
+        "phase 7a 170x300", lambda: run_entry_points(cfg, threefry.jax_priorities()))
     require_launches("phase 7a 170x300", la)
     if res["mapper"].max_overflow != oref["max_overflow"]:
         fail(f"phase 7a: overflow {res['mapper'].max_overflow}")
@@ -1299,7 +1344,8 @@ def phase_7a(work, dev, smi):
           f"own spread [{spread['min']:.4f}, {spread['max']:.4f}] "
           f"({len(spread['runs'])} runs, {os.path.basename(REF_ORB_SPREAD)})")
     print(f"[phase 7a] 170x300: tracker {dict(res['tracker'].status)}, "
-          f"launches {la}; {time.perf_counter() - t0:.1f} s ({smi})")
+          f"launches {la}, bilateral {fa}; {time.perf_counter() - t0:.1f} s "
+          f"({smi})")
 
     t0 = time.perf_counter()
     cams = loop_sequence(make_cameras(LOOP_OUT, TUM_H, TUM_W))
@@ -1314,10 +1360,13 @@ def phase_7a(work, dev, smi):
     captured, calls, restore = capture_optimize_launches(blend, optimize)
     t0 = time.perf_counter()
     try:
-        res, lb = counted(lambda: run_sequence(args, cams, dev))
+        res, lb, fb = filtered_run(f"phase 7a {TUM_H}x{TUM_W}",
+                                   lambda: run_sequence(args, cams, dev))
     finally:
         restore()
         untime()
+    if fb != len(cams):
+        fail(f"phase 7a: {fb} filtered frames of {len(cams)}")
     run_s = time.perf_counter() - t0
     status = dict(res["tracker"].status)
     ev = res["eval"]
@@ -1340,12 +1389,13 @@ def phase_7a(work, dev, smi):
           f" + backend {split['_refine_with_backend']:.2f} + loop check "
           f"{split['observe']:.2f} (slowest {max(spent['observe']) * 1e3:.2f}) "
           f"+ the rest; median mapping {mapping:.2f} ms; launches {lb} for "
-          f"{iters} gradient iterations; run {run_s:.1f} s ({smi})")
+          f"{iters} gradient iterations, bilateral {fb} (one a frame); run "
+          f"{run_s:.1f} s ({smi})")
     if set(captured.get("local", {})) != {"fwd", "bwd"}:
         fail("phase 7a made no local optimize launch of K1 and K2")
     works = check_launch(f"phase 7a {TUM_H}x{TUM_W} local optimize launch",
                          captured["local"]["fwd"], captured["local"]["bwd"], smi)
-    return add_counts(la, lb), works
+    return add_counts(la, lb), works, fa + fb
 
 
 def phase_7b(work, dev, smi):
@@ -1854,6 +1904,110 @@ def phase_9(mapper, args, cams, kept_local, local_ms, dev, smi):
     return add_counts(*counts9), inf, works
 
 
+def profiled_filters(depths, reps):
+    """One torch.profiler session over the bilateral kernel once and its
+    plain loop ``reps`` times at each of ``depths`` (a process that
+    profiles more than once loses events, so this is the only session).
+    Returns, per depth, (the kernel's launches, the loop's launches per
+    call, the median of the loop's summed device ms).  Copies and memsets
+    are left out, as benchmark/trace.py counts; the sum is the device's own
+    work, whatever the host's enqueue leaves it waiting between kernels."""
+    import torch
+    from rtgslam_torch.ops import preprocess
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for depth in depths:
+            preprocess.bilateral_filter(depth)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                preprocess.bilateral_filter_plain(depth)
+                torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset", "Memory"))),
+                 key=lambda e: e.time_range.start)
+    # each kernel launch opens the group of the loop's calls that follow it
+    groups = []
+    for e in evs:
+        if "bilateral_kernel" in e.name:
+            groups.append([])
+        elif not groups:
+            fail(f"phase 3f: {e.name} ran before the first bilateral kernel")
+        else:
+            groups[-1].append(e.time_range.elapsed_us() * 1e-3)
+    if len(groups) != len(depths):
+        fail(f"phase 3f: the profile holds {len(groups)} bilateral kernels, "
+             f"{len(depths)} launched")
+    out = []
+    for g in groups:
+        if len(g) % reps:
+            fail(f"phase 3f: {len(g)} kernels of the plain loop in {reps} calls")
+        n = len(g) // reps
+        out.append((1, n, median(sum(g[i * n:(i + 1) * n]) for i in range(reps))))
+    return out
+
+
+def phase_3f(dev, smi):
+    """The bilateral filter's kernel against its plain loop (docstring, 3f).
+    Returns a row per size for the kernels line."""
+    import torch
+    from rtgslam_torch.ops import preprocess
+    from rtgslam_torch.utils import cuda_build
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_parity as tp
+
+    t0 = time.perf_counter()
+    preprocess._bilateral_lib()
+    info = cuda_build.build_info["bilateral"]
+    print(f"[phase 3f] built bilateral in {info['seconds']:.2f} s ({smi})")
+    print(info["ptxas"].strip())
+    gen = torch.Generator(device=dev).manual_seed(20)
+    depths = [tp.kinect_depth("fr1_desk", 480, 640, dev, gen),
+              tp.kinect_depth("orbit", 680, 1200, dev, gen)]
+    preprocess.reset_launches()
+    rows = []
+    for depth in depths:
+        H, W = depth.shape
+        got = preprocess.bilateral_filter(depth)
+        want = preprocess.bilateral_filter_plain(depth)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"phase 3f {H}x{W}: the bilateral kernel differs from its plain "
+                 f"loop at {int((got != want).sum())} pixels")
+        ms = cuda_ms(lambda: preprocess.bilateral_filter(depth), 200)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            preprocess.bilateral_filter_plain(depth)
+            torch.cuda.synchronize()
+        plain_host_ms = (time.perf_counter() - t1) / 5 * 1e3
+        t1 = time.perf_counter()
+        for _ in range(50):
+            preprocess.bilateral_filter(depth)
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t1) / 50 * 1e3
+        bound_ms, by = bound(BILATERAL_OPS * H * W, 8 * H * W)
+        rows.append({"kernel": "bilateral", "shape": [H, W], "ms": ms,
+                     "bound_ms": bound_ms, "bound_by": by, "share": bound_ms / ms,
+                     "host_ms": host_ms, "plain_host_ms": plain_host_ms})
+    # the loop's 900 launches overflow the launch queue, so its time under
+    # cuda_ms would be the host's enqueue: sum its kernels instead
+    for row, (kernels, plain_kernels, plain_ms) in zip(
+            rows, profiled_filters(depths, 3)):
+        if (kernels, plain_kernels) != (1, PLAIN_FILTER_KERNELS):
+            fail(f"phase 3f {row['shape']}: {kernels} kernel and "
+                 f"{plain_kernels} loop kernels, not 1 and {PLAIN_FILTER_KERNELS}")
+        row.update(plain_ms=plain_ms, kernels=kernels, plain_kernels=plain_kernels)
+        print(f"[phase 3f] {row['shape'][0]}x{row['shape'][1]}: bitwise the "
+              f"plain loop; " + json.dumps(row))
+    rows[0]["launches"] = preprocess.launches["bilateral"]
+    print(f"[phase 3f] {time.perf_counter() - t0:.1f} s ({smi})")
+    return rows
+
+
 def main():
     import torch
 
@@ -1939,6 +2093,9 @@ def main():
     print(f"[phase 3d] random tiles: K2 max abs err {err_bwd:.3g}; per column "
           f"err/largest: {cols}; reduce err {err_red:.3g}; bitwise equal over "
           f"two launches; phase 3 {time.perf_counter() - t0:.1f} s ({smi})")
+
+    # ---- phase 3f: the bilateral depth filter vs its plain loop ---------------
+    filt = phase_3f(dev, smi)
 
     # ---- phase 4: forward-only loop at 170x300 vs the JAX reference ----------
     t0 = time.perf_counter()
@@ -2076,7 +2233,7 @@ def main():
         by_phase["10"], works["band"] = phase_10(work, cams340, smi)
         by_phase["7b"] = phase_7b(work, dev, smi)
         by_phase["7c"], works["frozen"] = phase_7c(mapper, args, smi)
-        by_phase["7a"], works["tum"] = phase_7a(work, dev, smi)
+        by_phase["7a"], works["tum"], filt7a = phase_7a(work, dev, smi)
     phase_8_subprocess(smi)
     by_phase["8"], works["bench"], mapper8 = phase_8(cams, dev, smi)
     check_segment_sum(mapper8, cams[-1], dev, smi)
@@ -2110,6 +2267,14 @@ def main():
               max(err_bwd, err("bwd"))),
         entry("blend_bwd_reduce", "blend_bwd.cu", "180", loc["reduce"],
               max(err_red, err("reduce"))),
+        # bitwise its loop; timed at TUM's 480x640 (phase 3f), launched on
+        # the main path by phase 7a alone (the one phase with the filter on)
+        {"name": "bilateral", "route": "cuda", "source": src + "bilateral.cu",
+         "replaces": "rtgslam_tpu/ops/preprocess.py:85", "launches": filt7a,
+         "max_abs_err": 0.0, "ms": filt[0]["ms"], "plain_ms": filt[0]["plain_ms"],
+         "bound_ms": filt[0]["bound_ms"], "bound_by": filt[0]["bound_by"],
+         "library_ms": None,
+         "launches_by_phase": {"3f": filt[0]["launches"], "7a": filt7a}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,33 @@ depth filter, depth pyramids and the optimize passes' tile masks.
 
 Port of ``rtgslam_tpu/ops/preprocess.py`` (reference ``SLAM/utils.py``:
 vertex map :65, Sobel normals :100, confidence :125, bilateral filter
-:550, pooling :655).
+:550, pooling :655).  On a CUDA tensor the bilateral filter is one
+hand-written kernel (``csrc/bilateral.cu``), bitwise its plain loop
+:func:`bilateral_filter_plain`, which CPU tensors run.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
+
 import torch
 import torch.nn.functional as F
+
+from ..utils import cuda_build, perf
+
+# the kernel's block stages (32 + 2r) x (8 + 2r) floats: under 48 KB
+MAX_RADIUS = 32
+
+launches = {"bilateral": 0}
+_launch_lock = threading.Lock()
+_lib = None
+
+
+def reset_launches() -> None:
+    with _launch_lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def transform_map(m: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
@@ -72,7 +92,59 @@ def bilateral_filter(depth: torch.Tensor, radius: int = 5,
                      sigma_color: float = 2.0, sigma_space: float = 2.0) -> torch.Tensor:
     """Bilateral depth filter over a disc of ``radius``; zero-depth
     neighbours are excluded, zero-weight outputs stay zero (``:85``; as in
-    the reference, a zero-depth centre is inpainted from valid neighbours)."""
+    the reference, a zero-depth centre is inpainted from valid neighbours).
+
+    A CPU tensor runs :func:`bilateral_filter_plain`.  Any other launches
+    ``csrc/bilateral.cu`` on the current stream (span
+    ``track.filter_kernel``) or raises: it takes a contiguous float32 CUDA
+    ``[H, W]`` or ``[H, W, 1]`` depth and ``0 <= radius <= MAX_RADIUS``,
+    and returns the plain loop's bits."""
+    if depth.device.type == "cpu":
+        return bilateral_filter_plain(depth, radius, sigma_color, sigma_space)
+    if depth.device.type != "cuda":
+        raise ValueError(f"the bilateral filter runs on cuda or cpu, not {depth.device}")
+    if depth.dtype != torch.float32 or not depth.is_contiguous():
+        raise TypeError("the bilateral kernel takes contiguous float32 depth, "
+                        f"got {depth.dtype}, contiguous={depth.is_contiguous()}")
+    if not (depth.ndim == 2 or (depth.ndim == 3 and depth.shape[2] == 1)):
+        raise ValueError(f"depth must be [H, W] or [H, W, 1], got {tuple(depth.shape)}")
+    if not 0 <= radius <= MAX_RADIUS:
+        raise ValueError(f"radius must lie in [0, {MAX_RADIUS}], got {radius}")
+    squeeze = depth.ndim == 3
+    if squeeze:
+        depth = depth[..., 0]
+    H, W = depth.shape
+    out = torch.empty((H, W), dtype=torch.float32, device=depth.device)
+    if depth.numel():
+        with perf.span("track.filter_kernel"), torch.cuda.device(depth.device):
+            rc = _bilateral_lib().rtg_bilateral(
+                depth.data_ptr(), H, W, radius, 2 * sigma_space ** 2,
+                2 * sigma_color ** 2, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"bilateral kernel launch failed: cudaError {rc}")
+        with _launch_lock:   # the pipelined system's tracker thread counts here
+            launches["bilateral"] += 1
+    return out[..., None] if squeeze else out
+
+
+def _bilateral_lib() -> ctypes.CDLL:
+    """Build (at first use) and bind ``csrc/bilateral.cu``."""
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load_library("bilateral")
+        P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.rtg_bilateral.argtypes = [P, I, I, I, D, D, P, P]
+        lib.rtg_bilateral.restype = I
+        _lib = lib
+    return _lib
+
+
+def bilateral_filter_plain(depth: torch.Tensor, radius: int = 5,
+                           sigma_color: float = 2.0,
+                           sigma_space: float = 2.0) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`bilateral_filter` (same arguments): the
+    JAX loop op by op, any device and float dtype."""
     squeeze = depth.ndim == 3
     if squeeze:
         depth = depth[..., 0]

@@ -51,7 +51,8 @@ def preprocess_frame(depth: torch.Tensor, color: torch.Tensor, K: torch.Tensor,
     vertex / normal / confidence maps, low-confidence invalidation."""
     d = depth[..., 0] if depth.ndim == 3 else depth
     if use_filter:
-        d = preprocess.bilateral_filter(d, 5, 2.0, 2.0)
+        with perf.span("track.filter"):
+            d = preprocess.bilateral_filter(d, 5, 2.0, 2.0)
     d = torch.where((d > min_depth) & (d < max_depth), d, 0.0)
     vertex_c = preprocess.compute_vertex_map(d, K)
     normal_c = preprocess.compute_normal_map(vertex_c)

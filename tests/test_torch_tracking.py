@@ -58,6 +58,56 @@ def test_preprocess_frame(synthetic_cams, use_filter):
             _close(got[k], v, atol=5e-5 if use_filter else ATOL)
 
 
+def test_bilateral_filter_on_the_cpu_loads_no_library(monkeypatch):
+    """A CPU tensor takes the plain loop: no kernel library is built or
+    loaded, no launch is counted, and both depth layouts come back as
+    given."""
+    from rtgslam_torch.ops import preprocess
+    from rtgslam_torch.utils import cuda_build
+
+    def refuse(name):
+        raise AssertionError(f"the CPU path loaded the library {name}")
+
+    monkeypatch.setattr(cuda_build, "load_library", refuse)
+    rng = np.random.default_rng(3)
+    depth = (1.0 + rng.random((24, 40))).astype(np.float32)
+    depth[rng.random(depth.shape) < 0.2] = 0.0
+    before = dict(preprocess.launches)
+    for d in (_t(depth), _t(depth[..., None])):
+        got = preprocess.bilateral_filter(d, 5, 2.0, 2.0)
+        assert got.shape == d.shape
+        assert torch.equal(got, preprocess.bilateral_filter_plain(d, 5, 2.0, 2.0))
+    assert preprocess.launches == before
+
+
+@pytest.mark.parametrize("use_filter", [True, False])
+def test_staged_tracker_times_the_filter(synthetic_cams, monkeypatch, use_filter):
+    """The staged tracker on the CPU records ``track.filter`` once a frame
+    with the depth filter on and never ``track.filter_kernel`` (the kernel
+    runs only on the card); with the filter off, neither."""
+    import torch_parity as tp
+    from rtgslam_torch.slam import pose_backend as tpb
+    from rtgslam_torch.utils import perf
+
+    monkeypatch.setattr(perf, "ENABLED", True)
+    perf.reset()
+    try:
+        tr = ttracker.Tracker(_args(use_gt_pose=False, use_orb_backend=True,
+                                    use_loop_closure=False,
+                                    depth_filter=use_filter),
+                              "cpu", orb_backend=tpb.FakePoseBackend())
+        tr.orb_backend.initialize(True)
+        assert not tr.fused
+        for i, cam in enumerate(tp.port_cameras(synthetic_cams[:3])):
+            tr.tracking(cam, tr.map_preprocess(cam, i))
+        report = perf.report()
+    finally:
+        perf.reset()
+    assert report["track.frame"]["count"] == 3
+    assert report.get("track.filter", {}).get("count", 0) == (3 if use_filter else 0)
+    assert "track.filter_kernel" not in report
+
+
 def test_icp_pyramids_and_fusion(synthetic_cams):
     cam = synthetic_cams[2]
     K = cam.intrinsic

@@ -450,6 +450,41 @@ CONFTEST_KEYS = dict(map_capacity=8192, temp_capacity=2048, block_capacity=512,
                      stable_confidence_thres=30, save_step=10_000)
 
 
+def depth_holes(depth, gen):
+    """``depth`` [H, W] with ~5 % of its pixels zeroed at random (``gen``)
+    and a block of a tenth of each side, as a depth sensor leaves holes."""
+    import torch
+
+    H, W = depth.shape
+    depth = torch.where(torch.rand(depth.shape, generator=gen,
+                                   device=depth.device) < 0.05, 0.0, depth)
+    depth[H // 3:H // 3 + max(H // 10, 1), W // 4:W // 4 + max(W // 10, 1)] = 0.0
+    return depth.contiguous()
+
+
+def kinect_depth(mix: str, H: int, W: int, device, gen):
+    """[H, W] float32 depth on ``device``: the first frame that
+    ``benchmark/scene.py`` ray-casts for the traffic mix ``mix`` at H x W,
+    with TUM fr1's Kinect noise and 1/5000 m steps
+    (``benchmark/traffic/fr1_desk.json``), holes punched by
+    :func:`depth_holes`."""
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "benchmark"))
+    import scene
+
+    def traffic(name):
+        with open(os.path.join(REPO, "benchmark", "traffic", name + ".json")) as f:
+            return json.load(f)
+
+    kinect = traffic("fr1_desk")["sensor"]
+    sensor = dict(traffic(mix)["sensor"], depth_noise_k=kinect["depth_noise_k"],
+                  depth_scale=kinect["depth_scale"], noise_seed=7)
+    seq = scene.make_sequence(sensor, traffic(mix)["motion"], H, W, 1, device)
+    depth = torch.as_tensor(seq["depth"][0][..., 0], device=device)
+    return depth_holes(depth, gen)
+
+
 def conftest_args():
     """tests/conftest.py::base_args, for the script (no pytest)."""
     sys.path.insert(0, os.path.join(REPO))
