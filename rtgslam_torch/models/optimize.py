@@ -29,8 +29,8 @@ Two formulations, as in the JAX package:
     order and tile lists frozen once per call (``render_fixed_binning``).
 
 On a CUDA device a compact pass replays the parts of its iteration around
-K1, K2 and Adam as CUDA graphs (:class:`CompactStages`), with the same
-bits as the eager iteration.
+K1, K2 and Adam as CUDA graphs (:class:`CompactStages`, captured through
+``utils/cuda_graphs.py``), with the same bits as the eager iteration.
 
 The JAX package buckets the compact sizes to powers of two for its static
 shapes; here the pool and tile counts are used as they are, and the list
@@ -40,7 +40,6 @@ updated in place.
 
 from __future__ import annotations
 
-import threading
 from contextlib import nullcontext
 from typing import Dict, NamedTuple, Sequence
 
@@ -56,7 +55,7 @@ from ..ops.rasterize.api import (RasterSettings, compact_feature_rows,
 from ..ops.rasterize.blend import CHUNK, RowIndex, blend_transmission, row_index
 from ..ops.rasterize.project import project_geometry
 from ..ops.segment import stable_partition_order
-from ..utils import perf
+from ..utils import cuda_graphs, perf
 from ..utils.geometry import normalize
 from . import map_ops
 from .gaussian_map import (MapState, activated_opacity, activated_scales,
@@ -486,8 +485,6 @@ def compact_problem(state: MapState, colors, depths, normals, w2cs, Ks,
 # capture pays for itself within a few iterations (PERF.md §6).
 REPLAY_MIN_ITERS = 10
 
-_graph_local = threading.local()   # .pools: device -> (CUDAGraph, Stream)
-
 
 def use_stages(device: torch.device, n_iters: int, blend_for) -> bool:
     """Whether a compact pass replays its stages as CUDA graphs
@@ -495,31 +492,6 @@ def use_stages(device: torch.device, n_iters: int, blend_for) -> bool:
     and from :data:`REPLAY_MIN_ITERS` iterations on."""
     return (device.type == "cuda" and blend_for is None
             and n_iters >= REPLAY_MIN_ITERS)
-
-
-def _graph_pool(device: torch.device):
-    """The calling thread's graph memory pool and capture stream on
-    ``device``, kept while the thread lives.  Every pass captures into the
-    same pool from the same stream, so it reuses the memory of the last
-    pass's graphs, which died with their pass.  A pool lives while a graph
-    captured into it does: a one-op graph that is never replayed holds it
-    (torch's allocators assert when a capture names a pool with no live
-    graph, a ``MemPool``'s included)."""
-    pools = getattr(_graph_local, "pools", None)
-    if pools is None:
-        pools = _graph_local.pools = {}
-    if device not in pools:
-        side = torch.cuda.Stream(device)
-        holder = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            holder.capture_begin(capture_error_mode="thread_local")
-            try:
-                torch.zeros((1,), device=device)
-            finally:
-                holder.capture_end()
-        pools[device] = (holder, side)
-    holder, side = pools[device]
-    return holder.pool(), side
 
 
 class _Seed(torch.autograd.Function):
@@ -638,26 +610,10 @@ class CompactStages:
             self.graphs[n].replay()
 
     def _capture(self):
-        dev = self.idx.device
-        pool, side = _graph_pool(dev)
-        caller = torch.cuda.current_stream(dev)
+        pool, side = cuda_graphs.thread_pool(self.idx.device)
         self.a_out = self.feat = self.normal = self.cot = self.grads = None
-        side.wait_stream(caller)
-        graphs = []
-        with torch.cuda.stream(side):
-            for stage in (self._stage_a, self._stage_c, self._stage_a_bwd):
-                graph = torch.cuda.CUDAGraph()
-                # thread-local: the pipelined system's tracker thread may
-                # launch and wait while the mapper thread captures
-                graph.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    stage()
-                finally:
-                    graph.capture_end()
-                graphs.append(graph)
-        caller.wait_stream(side)
-        self.graphs = graphs
+        self.graphs = cuda_graphs.capture(
+            (self._stage_a, self._stage_c, self._stage_a_bwd), side, pool=pool)
 
     def __call__(self, i: int, f: int, params):
         """(gradients, report) of step ``i`` on frame ``f`` at ``params``."""

@@ -8,12 +8,10 @@ order [rot, trans] and the left-Jacobian exponential match ``exp_se3``.
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
 
-from ..utils import perf
+from ..utils import cuda_graphs, perf
 from ..utils.geometry import exp_se3
 from . import preprocess
 
@@ -151,51 +149,28 @@ def _solve(pose10, vertex1_pyr, vertex0_pyr, normal1_pyr, normal0_pyr, K,
     return pose10, p2p
 
 
-# A captured solve per key: the inputs' shapes and dtypes and the settings
-# baked into its kernels, and where it replays (device, thread, stream: a
-# graph's static inputs serve one caller at a time).  A process keeps every
-# graph it captures, so later sessions and the loop closer's verifying
+# A captured solve per key (``cuda_graphs.replay_key``).  A process keeps
+# every graph it captures, so later sessions and the loop closer's verifying
 # solves replay the first one's; a key past the bound runs eager.
 MAX_GRAPHS = 8
-_graphs = {}
-_graphs_lock = threading.Lock()
+_graphs = cuda_graphs.GraphCache(MAX_GRAPHS)
 
 
 class _SolveGraph:
     """:func:`_solve` captured once as a CUDA graph: static inputs that
     each call copies its tensors into, and static outputs it clones."""
 
-    def __init__(self, inputs, levels, settings):
-        dev = inputs[0].device
-        self.levels = levels
-        caller = torch.cuda.current_stream(dev)
-        self.static = [torch.empty_like(t, memory_format=torch.contiguous_format)
-                       for t in inputs]
-        for dst, src in zip(self.static, inputs):
-            dst.copy_(src)
-        # warm up on the capture stream first (torch's recipe): the cuBLAS
-        # and cuSOLVER handles and workspaces of that stream are made there
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(caller)
-        with torch.cuda.stream(side):
-            _solve(*self._args(self.static), *settings)
-            self.graph = torch.cuda.CUDAGraph()
-            # thread-local: the pipelined system's mapper thread launches
-            # work while the tracker thread captures.  Until capture_end the
-            # default CUDA generator is the capture's: the mapper draws from
-            # a generator of its own (slam/mapper.py)
-            self.graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                self.pose10, self.p2p = _solve(*self._args(self.static),
-                                               *settings)
-            finally:
-                self.graph.capture_end()
-        caller.wait_stream(side)
+    def __init__(self, inputs, settings):
+        t = self.static = [x.clone(memory_format=torch.contiguous_format)
+                           for x in inputs]
+        n = (len(t) - 2) // 4   # pose, four pyramids of n levels, K
+        args = (t[0], *(t[1 + i * n:1 + (i + 1) * n] for i in range(4)), t[-1])
 
-    def _args(self, t):
-        """The flat static inputs as :func:`_solve`'s first arguments."""
-        n = self.levels
-        return (t[0], *(t[1 + i * n:1 + (i + 1) * n] for i in range(4)), t[-1])
+        def solve():
+            self.pose10, self.p2p = _solve(*args, *settings)
+        with perf.span("track.solve_capture"):   # from a fresh stream
+            self.graph, = cuda_graphs.capture(
+                [solve], torch.cuda.Stream(inputs[0].device), warmup=True)
 
     def __call__(self, inputs):
         for dst, src in zip(self.static, inputs):
@@ -219,24 +194,17 @@ def icp_solve_all_levels(pose10, vertex1_pyr, vertex0_pyr, normal1_pyr,
                 float(damping), float(distance_threshold),
                 float(normal_threshold), str(association))
     with perf.span("track.solve"):
-        if pose10.device.type != "cuda":
-            return _solve(pose10, vertex1_pyr, vertex0_pyr, normal1_pyr,
-                          normal0_pyr, K, *settings)
-        inputs = (pose10, *vertex1_pyr, *vertex0_pyr, *normal1_pyr,
-                  *normal0_pyr, K)
-        key = (pose10.device, threading.get_ident(),
-               torch.cuda.current_stream(pose10.device).cuda_stream,
-               tuple((t.shape, t.dtype) for t in inputs), settings)
-        graph = _graphs.get(key)
-        if graph is not None:
-            with perf.span("track.solve_replay"):
-                return graph(inputs)
-        with _graphs_lock:
-            if len(_graphs) < MAX_GRAPHS:
-                with perf.span("track.solve_capture"):
-                    graph = _graphs[key] = _SolveGraph(
-                        inputs, len(vertex1_pyr), settings)
+        if pose10.device.type == "cuda":
+            inputs = (pose10, *vertex1_pyr, *vertex0_pyr, *normal1_pyr,
+                      *normal0_pyr, K)
+            key = cuda_graphs.replay_key(inputs, settings)
+            graph = _graphs.get(key)
+            if graph is not None:
+                with perf.span("track.solve_replay"):
                     return graph(inputs)
+            graph = _graphs.add(key, lambda: _SolveGraph(inputs, settings))
+            if graph is not None:
+                return graph(inputs)
         return _solve(pose10, vertex1_pyr, vertex0_pyr, normal1_pyr,
                       normal0_pyr, K, *settings)
 

@@ -302,19 +302,13 @@ class Tracker:
             with perf.span("track.icp"):
                 pose_t1_t0, success = self.icp.predict_pose()
             if not success and self.loop_closer is not None:
-                # relocalize against the stored records (the reference
-                # recovers through ORB-SLAM2's relocalization)
-                guess = self.pose_es[-1] @ np.asarray(pose_t1_t0)
-                with perf.span("track.loop_check"):
-                    reloc = self.loop_closer.relocalize(
-                        self.curr_frame["frame_id"], guess,
-                        frame_map["depth_map"], self.K, color_map=frame.image)
+                reloc = self._relocalize(
+                    self.pose_es[-1] @ np.asarray(pose_t1_t0),
+                    frame_map["depth_map"], frame)
                 if reloc is not None:
                     pose_t1_t0 = np.linalg.inv(self.pose_es[-1]) @ reloc
                     self.icp.reset_prior(pose_t1_t0)
                     success = True
-                    self.status["relocalized"] = \
-                        int(self.status.get("relocalized", 0)) + 1
             if self.use_orb_backend:
                 with perf.span("track.backend"):
                     pose_t1_w = self._refine_with_backend(pose_t1_t0, success)
@@ -324,25 +318,15 @@ class Tracker:
         self.icp.move_last_status()
         self.pose_es.append(np.asarray(pose_t1_w))
 
-        if self.loop_closer is not None and not self.use_gt_pose:
-            with perf.span("track.loop_check"):
-                loop = self.loop_closer.observe(
-                    self.curr_frame["frame_id"], pose_t1_w,
-                    frame_map["depth_map"], self.K, color_map=frame.image)
-            if loop is not None:
-                i, j, T_ij = loop
-                self.orb_backend.add_loop_constraint(i, j, T_ij)
-                # adopt the relaxed history, this frame's pose included
-                corrected, _ = convert_poses(
-                    self.orb_backend.get_trajectory_points())
-                if len(corrected) == len(self.pose_es):
-                    self.pose_es = corrected
-                    pose_t1_w = corrected[-1]
-                    # re-anchor the store too, or a later relocalize would
-                    # bring back the drift this closure removed
-                    self.loop_closer.update_poses(corrected)
-                self.status["loops_closed"] = \
-                    int(self.status.get("loops_closed", 0)) + 1
+        loop = self._observe(pose_t1_w, frame_map["depth_map"], frame)
+        if loop is not None:
+            self.orb_backend.add_loop_constraint(*loop)
+            # adopt the relaxed history, this frame's pose included
+            corrected, _ = convert_poses(
+                self.orb_backend.get_trajectory_points())
+            self._close_loop(corrected if len(corrected) == len(self.pose_es)
+                             else None)
+            pose_t1_w = self.pose_es[-1]
 
         frame.update_pose(pose_t1_w)
         frame_map["vertex_map_w"], frame_map["normal_map_w"] = lift_to_world(
@@ -403,20 +387,14 @@ class Tracker:
             pose_t1_w = host[:16].reshape(4, 4).numpy()
             success = bool(host[16])
             if not success and self.loop_closer is not None:
-                # relocalize against the stored records (staged-path twin)
-                with perf.span("track.loop_check"):
-                    reloc = self.loop_closer.relocalize(
-                        self.curr_frame["frame_id"],
-                        np.asarray(pose_t1_w, np.float64), fm["depth_map"],
-                        self.K, color_map=frame.image)
+                reloc = self._relocalize(np.asarray(pose_t1_w, np.float64),
+                                         fm["depth_map"], frame)
                 if reloc is not None:
                     pose_t1_w = np.asarray(reloc, np.float32)
                     rel = np.linalg.inv(self._prev_c2w) @ pose_t1_w
                     self._last_rel = self._tensor(rel)
                     fm = _lift(fm, self._tensor(pose_t1_w))
                     success = True
-                    self.status["relocalized"] = \
-                        int(self.status.get("relocalized", 0)) + 1
 
         self._prev_depth = fm["depth_map"]
         self._model_feedback = None
@@ -424,30 +402,50 @@ class Tracker:
         frame_map.update(fm)
         self.pose_es.append(np.asarray(pose_t1_w))
 
-        if self.loop_closer is not None and not self.use_gt_pose:
-            with perf.span("track.loop_check"):
-                loop = self.loop_closer.observe(
-                    self.curr_frame["frame_id"],
-                    np.asarray(pose_t1_w, np.float64), fm["depth_map"], self.K,
-                    color_map=frame.image)
-            if loop is not None:
-                i, j, T_ij = loop
-                self._loops.append((i, j, np.asarray(T_ij, np.float64), 1.0))
-                self.pose_es = [np.asarray(p) for p in
-                                relax_pose_graph(self.pose_es, self._loops)]
-                pose_t1_w = np.asarray(self.pose_es[-1], np.float32)
-                # re-anchor the store, or a later relocalize would bring
-                # back the drift this closure removed
-                self.loop_closer.update_poses(self.pose_es)
-                # hand the relaxed history to the mapper (update_poses)
-                self._corrected_poses = list(self.pose_es)
-                frame_map.update(_lift(fm, self._tensor(pose_t1_w)))
-                self.status["loops_closed"] = \
-                    int(self.status.get("loops_closed", 0)) + 1
+        loop = self._observe(np.asarray(pose_t1_w, np.float64),
+                             fm["depth_map"], frame)
+        if loop is not None:
+            i, j, T_ij = loop
+            self._loops.append((i, j, np.asarray(T_ij, np.float64), 1.0))
+            self._close_loop([np.asarray(p) for p in
+                              relax_pose_graph(self.pose_es, self._loops)])
+            pose_t1_w = np.asarray(self.pose_es[-1], np.float32)
+            # hand the relaxed history to the mapper (update_poses)
+            self._corrected_poses = list(self.pose_es)
+            frame_map.update(_lift(fm, self._tensor(pose_t1_w)))
 
         self._prev_c2w = np.asarray(pose_t1_w, np.float32)
         frame.update_pose(np.asarray(pose_t1_w, np.float64))
         return success
+
+    def _relocalize(self, guess, depth_map, frame: Camera):
+        """The world pose the loop closer finds from ``guess`` after a hard
+        failure (the reference's ORB-SLAM2 relocalization), or None."""
+        with perf.span("track.loop_check"):
+            reloc = self.loop_closer.relocalize(
+                self.curr_frame["frame_id"], guess, depth_map, self.K,
+                color_map=frame.image)
+        if reloc is not None:
+            self.status["relocalized"] += 1
+        return reloc
+
+    def _observe(self, pose_t1_w, depth_map, frame: Camera):
+        """The loop ``(i, j, T_ij)`` closed at this frame, or None."""
+        if self.loop_closer is None:   # none on ground-truth poses either
+            return None
+        with perf.span("track.loop_check"):
+            return self.loop_closer.observe(
+                self.curr_frame["frame_id"], pose_t1_w, depth_map, self.K,
+                color_map=frame.image)
+
+    def _close_loop(self, corrected) -> None:
+        """Adopt the relaxed history ``corrected`` (None: keep it) and
+        re-anchor the store, or a later relocalize would bring back the
+        drift this closure removed."""
+        if corrected is not None:
+            self.pose_es = corrected
+            self.loop_closer.update_poses(corrected)
+        self.status["loops_closed"] += 1
 
     # ------------------------------------------------------------------
     def update_last_status(self, frame, render_depth, frame_depth,

@@ -11,7 +11,8 @@ second iteration and replayed from then on, and eager
 bit (Adam's eps of 1e-15 makes a one-ulp change a step the size of the
 learning rate) and return the same report; each replayed pass makes three
 graphs, and none outlives its pass (one more graph, made before the first
-pass, holds the thread's memory pool).
+pass by ``utils/cuda_graphs.py::thread_pool``, holds the thread's memory
+pool).
 
 On a machine with an NVIDIA GPU (the tests' conftest needs JAX):
 
@@ -37,7 +38,7 @@ from rtgslam_torch.models import optimize  # noqa: E402
 from rtgslam_torch.models.gaussian_map import MapState  # noqa: E402
 from rtgslam_torch.slam.mapper import Mapper  # noqa: E402
 from rtgslam_torch.slam.tracker import Tracker  # noqa: E402
-from rtgslam_torch.utils import perf  # noqa: E402
+from rtgslam_torch.utils import cuda_graphs, perf  # noqa: E402
 from test_torch_sync_spans import FRAMES, _cell  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -127,7 +128,7 @@ def _run_frames(config, device):
 def test_replayed_pass_is_bitwise_the_eager_pass(config, device, monkeypatch):
     monkeypatch.setattr(perf, "ENABLED", True)
     perf.reset()
-    optimize._graph_pool(device)   # the thread's pool and its holder graph
+    cuda_graphs.thread_pool(device)   # the thread's pool and its holder graph
     found = _checked_passes(monkeypatch)
     try:
         _run_frames(config, device)
