@@ -3,8 +3,11 @@
 // The reference reaches an ORB-SLAM2 C++ backend through a Boost.Python
 // binding (call sites SLAM/multiprocess/tracker.py:225-260).  This library
 // provides the same contract as a native component (this file is the
-// PyTorch port's copy of native/pose_backend.cc, kept byte-for-byte in its
-// code so both packages' trajectories agree):
+// PyTorch port's copy of native/pose_backend.cc; its results are bitwise
+// those of native/, so both packages' trajectories agree, while its
+// per-frame passes differ: the frame buffers are allocated once per camera
+// size and reused, the corner detector streams over the rows it reads, and
+// ZNCC sums each patch once per corner instead of once per pair):
 //   * a trajectory store fed by ICP relative poses (track_with_icp_pose);
 //   * a REAL image-feature fallback (track_with_orb_feature): Shi-Tomasi
 //     corners + ZNCC patch matching against the last tracked frame,
@@ -120,93 +123,148 @@ struct RefFrame {
   Mat4 c2w;
 };
 
-// rgb u8 [H, W, 3] -> normalized gray
-void to_gray(const uint8_t* rgb, int W, int H, std::vector<float>& out) {
-  out.resize(static_cast<size_t>(W) * H);
-  for (int i = 0; i < W * H; ++i)
+// rgb u8 [n, 3] -> normalized gray
+void to_gray(const uint8_t* rgb, int n, float* out) {
+  for (int i = 0; i < n; ++i)
     out[i] = (0.299f * rgb[i * 3] + 0.587f * rgb[i * 3 + 1] +
               0.114f * rgb[i * 3 + 2]) / 255.0f;
 }
 
-void depth_to_metres(const uint16_t* d, int W, int H, double scale,
-                     std::vector<float>& out) {
-  out.resize(static_cast<size_t>(W) * H);
-  for (int i = 0; i < W * H; ++i)
+void depth_to_metres(const uint16_t* d, int n, double scale, float* out) {
+  for (int i = 0; i < n; ++i)
     out[i] = static_cast<float>(d[i] / scale);
 }
 
-// Shi-Tomasi min-eigenvalue corners with per-cell non-max suppression.
-void shi_tomasi(const std::vector<float>& g, int W, int H,
-                std::vector<Corner>& corners, int cell = 12,
-                float thresh = 1e-4f) {
-  corners.clear();
-  if (W < 16 || H < 16) return;
-  std::vector<float> ix(static_cast<size_t>(W) * H, 0.f),
-      iy(static_cast<size_t>(W) * H, 0.f);
-  for (int y = 1; y + 1 < H; ++y)
-    for (int x = 1; x + 1 < W; ++x) {
-      const int i = y * W + x;
-      ix[i] = 0.5f * (g[i + 1] - g[i - 1]);
-      iy[i] = 0.5f * (g[i + W] - g[i - W]);
-    }
-  // structure tensor over a 5x5 window via separable box sums
-  auto box5 = [&](std::vector<float>& a) {
-    std::vector<float> tmp(a.size(), 0.f);
-    for (int y = 0; y < H; ++y)
-      for (int x = 2; x + 2 < W; ++x) {
-        const int i = y * W + x;
-        tmp[i] = a[i - 2] + a[i - 1] + a[i] + a[i + 1] + a[i + 2];
-      }
-    for (int y = 2; y + 2 < H; ++y)
-      for (int x = 0; x < W; ++x) {
-        const int i = y * W + x;
-        a[i] = tmp[i - 2 * W] + tmp[i - W] + tmp[i] + tmp[i + W] +
-               tmp[i + 2 * W];
-      }
-  };
-  std::vector<float> sxx(ix.size()), syy(ix.size()), sxy(ix.size());
-  for (size_t i = 0; i < ix.size(); ++i) {
-    sxx[i] = ix[i] * ix[i];
-    syy[i] = iy[i] * iy[i];
-    sxy[i] = ix[i] * iy[i];
-  }
-  box5(sxx); box5(syy); box5(sxy);
-  const int margin = 8;  // keep full match patches inside the image
-  for (int cy = margin; cy < H - margin; cy += cell)
-    for (int cx0 = margin; cx0 < W - margin; cx0 += cell) {
-      Corner best{-1, -1, thresh};
-      for (int y = cy; y < std::min(cy + cell, H - margin); ++y)
-        for (int x = cx0; x < std::min(cx0 + cell, W - margin); ++x) {
-          const int i = y * W + x;
-          const float tr = sxx[i] + syy[i];
-          const float det_term = std::sqrt(
-              (sxx[i] - syy[i]) * (sxx[i] - syy[i]) + 4.f * sxy[i] * sxy[i]);
-          const float min_eig = 0.5f * (tr - det_term);
-          if (min_eig > best.score) best = {x, y, min_eig};
-        }
-      if (best.u >= 0) corners.push_back(best);
-    }
+constexpr int kCell = 12;         // corner cell side (one corner per cell)
+constexpr int kMargin = 8;        // keep full match patches inside the image
+constexpr int kCornerRows = 19;   // floats per image column shi_tomasi needs:
+                                  // 3 product rows, a 5-row ring of 3 sums
+                                  // and the centre row's scores
+
+// Most corners shi_tomasi can keep in a W x H frame (one per cell).
+size_t max_corners(int W, int H) {
+  return static_cast<size_t>((W + kCell - 1) / kCell) * ((H + kCell - 1) / kCell);
 }
 
-// zero-normalized cross-correlation of (2r+1)^2 patches
-float zncc(const std::vector<float>& a, int au, int av,
-           const std::vector<float>& b, int bu, int bv, int W, int r = 5) {
-  float ma = 0, mb = 0;
-  const int n = (2 * r + 1) * (2 * r + 1);
-  for (int dy = -r; dy <= r; ++dy)
-    for (int dx = -r; dx <= r; ++dx) {
-      ma += a[(av + dy) * W + au + dx];
-      mb += b[(bv + dy) * W + bu + dx];
+// Four adjacent columns.  Each lane computes what the scalar expression
+// computes, in the same order (no reassociation, no fused multiply-add),
+// so the results are bitwise those of the one-column-at-a-time form.
+typedef float f4 __attribute__((vector_size(16)));
+inline f4 load4(const float* p) { f4 v; std::memcpy(&v, p, sizeof v); return v; }
+inline void store4(float* p, f4 v) { std::memcpy(p, &v, sizeof v); }
+
+// Shi-Tomasi min-eigenvalue corners with per-cell non-max suppression,
+// one streaming pass over the rows the cells read, four columns at a time.
+// The structure tensor is the 5x5 box sum of the gradient products, summed
+// across (a[x-2] + ... + a[x+2]) and then down rows y-2..y+2 in that order,
+// so every score is bitwise that of the full-plane form; each cell keeps
+// its first strict maximum in row-major order.  `rows` holds
+// kCornerRows * W floats; `corners` should have max_corners(W, H) of
+// capacity.
+void shi_tomasi(const float* g, int W, int H, float* rows,
+                std::vector<Corner>& corners, float thresh = 1e-4f) {
+  corners.clear();
+  if (W < 16 || H < 16) return;
+  // Scores cover columns [kMargin, s1) and the products [x0, x1): whole
+  // groups of four, past W - kMargin by at most 3 columns, inside the row.
+  const int s1 = kMargin + 4 * ((W - 2 * kMargin + 3) / 4);
+  const int x0 = kMargin - 2, x1 = s1 + 2;
+  const int ncx = (W - 2 * kMargin + kCell - 1) / kCell;
+  float* prod[3] = {rows, rows + W, rows + 2 * W};   // xx, yy, xy
+  auto ring = [&](int y, int k) { return rows + (3 + 3 * (y % 5) + k) * W; };
+  float* eig = rows + 18 * W;                        // the centre row's scores
+  const f4 half = {0.5f, 0.5f, 0.5f, 0.5f}, four = {4.f, 4.f, 4.f, 4.f};
+  size_t cell_row = 0;  // first entry of the current row of cells
+  for (int r = kMargin - 2; r < H - kMargin + 2; ++r) {
+    const float* gr = g + static_cast<size_t>(r) * W;
+    for (int x = x0; x < x1; x += 4) {
+      const f4 ix = half * (load4(gr + x + 1) - load4(gr + x - 1));
+      const f4 iy = half * (load4(gr + x + W) - load4(gr + x - W));
+      store4(prod[0] + x, ix * ix);
+      store4(prod[1] + x, iy * iy);
+      store4(prod[2] + x, ix * iy);
     }
-  ma /= n; mb /= n;
-  float num = 0, da = 0, db = 0;
-  for (int dy = -r; dy <= r; ++dy)
-    for (int dx = -r; dx <= r; ++dx) {
-      const float va = a[(av + dy) * W + au + dx] - ma;
-      const float vb = b[(bv + dy) * W + bu + dx] - mb;
-      num += va * vb; da += va * va; db += vb * vb;
+    for (int k = 0; k < 3; ++k) {
+      const float* a = prod[k];
+      float* h = ring(r, k);
+      for (int x = kMargin; x < s1; x += 4)
+        store4(h + x, load4(a + x - 2) + load4(a + x - 1) + load4(a + x) +
+                          load4(a + x + 1) + load4(a + x + 2));
     }
-  const float den = std::sqrt(da * db);
+    const int y = r - 2;  // the centre row, once its five rows are summed
+    if (y < kMargin) continue;
+    if ((y - kMargin) % kCell == 0) {
+      cell_row = corners.size();
+      corners.resize(cell_row + ncx, Corner{-1, -1, thresh});
+    }
+    const float* v[3][5];  // the five rows' sums of each product
+    for (int k = 0; k < 3; ++k)
+      for (int d = 0; d < 5; ++d) v[k][d] = ring(y - 2 + d, k);
+    for (int x = kMargin; x < s1; x += 4) {
+      f4 box[3];
+      for (int k = 0; k < 3; ++k)
+        box[k] = load4(v[k][0] + x) + load4(v[k][1] + x) + load4(v[k][2] + x) +
+                 load4(v[k][3] + x) + load4(v[k][4] + x);
+      const f4 sxx = box[0], syy = box[1], sxy = box[2];
+      const f4 tr = sxx + syy;
+      const f4 det2 = (sxx - syy) * (sxx - syy) + four * sxy * sxy;
+      f4 det_term;
+      for (int l = 0; l < 4; ++l) det_term[l] = std::sqrt(det2[l]);
+      store4(eig + x, half * (tr - det_term));
+    }
+    Corner* best = corners.data() + cell_row;
+    for (int x = kMargin; x < W - kMargin; ++best) {
+      const int end = std::min(x + kCell, W - kMargin);
+      for (; x < end; ++x)
+        if (eig[x] > best->score) *best = {x, y, eig[x]};
+    }
+    if (y + 1 == H - kMargin || (y + 1 - kMargin) % kCell == 0)
+      corners.erase(std::remove_if(corners.begin() + cell_row, corners.end(),
+                                   [](const Corner& c) { return c.u < 0; }),
+                    corners.end());
+  }
+}
+
+// Zero-normalized cross-correlation of 11 x 11 patches, split so that
+// what depends on one patch alone is computed once per corner: the patch
+// less its mean (the mean summed in row-major order, then divided) and the
+// sum of its squares; a pair then costs one dot product.  Each sum runs in
+// the order of the one-pair form, so the score is bitwise the same.
+constexpr int kPatchR = 5, kPatch = (2 * kPatchR + 1) * (2 * kPatchR + 1);
+
+struct Patches {
+  std::vector<float> v;    // kPatch centred values per corner
+  std::vector<float> ss;   // their sum of squares
+};
+
+void centre_patches(const std::vector<float>& img, int W,
+                    const std::vector<Corner>& corners, Patches& out) {
+  out.v.resize(corners.size() * kPatch);
+  out.ss.resize(corners.size());
+  for (size_t k = 0; k < corners.size(); ++k) {
+    const Corner& c = corners[k];
+    float m = 0;
+    for (int dy = -kPatchR; dy <= kPatchR; ++dy)
+      for (int dx = -kPatchR; dx <= kPatchR; ++dx)
+        m += img[(c.v + dy) * W + c.u + dx];
+    m /= kPatch;
+    float* v = &out.v[k * kPatch];
+    float ss = 0;
+    for (int dy = -kPatchR, i = 0; dy <= kPatchR; ++dy)
+      for (int dx = -kPatchR; dx <= kPatchR; ++dx, ++i) {
+        v[i] = img[(c.v + dy) * W + c.u + dx] - m;
+        ss += v[i] * v[i];
+      }
+    out.ss[k] = ss;
+  }
+}
+
+float zncc(const Patches& a, size_t ia, const Patches& b, size_t ib) {
+  const float* va = &a.v[ia * kPatch];
+  const float* vb = &b.v[ib * kPatch];
+  float num = 0;
+  for (int i = 0; i < kPatch; ++i) num += va[i] * vb[i];
+  const float den = std::sqrt(a.ss[ia] * b.ss[ib]);
   return den < 1e-12f ? 0.f : num / den;
 }
 
@@ -305,38 +363,38 @@ inline double pair_err(const Mat4& T, const Vec3& a, const Vec3& b) {
   return std::sqrt(ex * ex + ey * ey + ez * ez);
 }
 
-// Match ref corners into the current frame and solve T_ref<-cur such that
-// P_ref ~= T * P_cur.  Returns false when tracking is not trustworthy.
+// Match ref corners into the current frame's corners `cur` and solve
+// T_ref<-cur such that P_ref ~= T * P_cur.  Returns false when tracking is
+// not trustworthy.
 // When inlier_ref/inlier_cur are given, the consensus-set 3D pairs (camera
 // coordinates of each frame) are written out — the windowed-refinement
 // observations (see Backend::window_refine).
 bool feature_track(const Camera& cam, const RefFrame& ref,
                    const std::vector<float>& gray,
-                   const std::vector<float>& depth, Mat4& T_ref_cur,
+                   const std::vector<float>& depth,
+                   const std::vector<Corner>& cur, Mat4& T_ref_cur,
                    int* n_inliers_out,
                    std::vector<Vec3>* inlier_ref = nullptr,
-                   std::vector<Vec3>* inlier_cur = nullptr,
-                   const std::vector<Corner>* cur_corners = nullptr) {
+                   std::vector<Vec3>* inlier_cur = nullptr) {
   if (!cam.valid || !ref.valid) return false;
-  std::vector<Corner> cur_local;
-  if (cur_corners == nullptr) {
-    shi_tomasi(gray, cam.W, cam.H, cur_local);
-    cur_corners = &cur_local;
-  }
-  const std::vector<Corner>& cur = *cur_corners;
   if (cur.size() < 16 || ref.corners.size() < 16) return false;
 
   const int radius = std::max(cam.W, cam.H) / 6;
+  Patches ref_p, cur_p;
+  centre_patches(ref.gray, cam.W, ref.corners, ref_p);
+  centre_patches(gray, cam.W, cur, cur_p);
   std::vector<Vec3> pc, pr;  // matched 3D points (current / reference)
-  for (const Corner& rc : ref.corners) {
+  for (size_t ri = 0; ri < ref.corners.size(); ++ri) {
+    const Corner& rc = ref.corners[ri];
     Vec3 p_ref;
     if (!lift(cam, ref.depth, rc.u, rc.v, p_ref)) continue;
     float best = 0.62f, second = 0.f;
     const Corner* bc = nullptr;
-    for (const Corner& cc : cur) {
+    for (size_t ci = 0; ci < cur.size(); ++ci) {
+      const Corner& cc = cur[ci];
       if (std::abs(cc.u - rc.u) > radius || std::abs(cc.v - rc.v) > radius)
         continue;
-      const float s = zncc(ref.gray, rc.u, rc.v, gray, cc.u, cc.v, cam.W);
+      const float s = zncc(ref_p, ri, cur_p, ci);
       if (s > best) { second = best; best = s; bc = &cc; }
       else if (s > second) second = s;
     }
@@ -467,6 +525,16 @@ struct Backend {
   bool last_track_ok = false;
   int last_inliers = 0;
 
+  // Frame-sized buffers kept across frames, sized by size_buffers when
+  // the camera fixes W x H: track_with_orb_feature's frame and corners, and
+  // shi_tomasi's rows.  Window frames leave the window into `spare` and
+  // are refilled from it.
+  std::vector<float> cur_gray, cur_depth;
+  std::vector<Corner> cur_corners;
+  std::vector<float> corner_rows;
+  std::vector<WinFrame> spare;
+  bool grew = false;             // the current image call allocated one
+
   // windowed refinement (see PairObs block comment)
   bool wba_enable = true;
   int wba_window = 5;            // poses refined together
@@ -478,19 +546,65 @@ struct Backend {
   void relax(int iterations);
   void window_observe(const Mat4& pose);
   void window_refine();
+  void size_buffers();
+
+  // Size a kept buffer to n values; past its capacity that allocates,
+  // which the image call then reports (pb_last_frame_reused).
+  void fit(std::vector<float>& v, size_t n) {
+    if (v.capacity() < n) grew = true;
+    v.resize(n);
+  }
+
+  // gray [0, 1], depth in metres and corners of a raw sensor frame
+  void load_frame(const uint8_t* color, const uint16_t* depth,
+                  std::vector<float>& gray, std::vector<float>& depth_m,
+                  std::vector<Corner>& corners) {
+    const int n = cam.W * cam.H;
+    fit(gray, n);
+    fit(depth_m, n);
+    fit(corner_rows, static_cast<size_t>(kCornerRows) * cam.W);
+    to_gray(color, n, gray.data());
+    depth_to_metres(depth, n, cam.depth_scale, depth_m.data());
+    shi_tomasi(gray.data(), cam.W, cam.H, corner_rows.data(), corners);
+  }
 
   // refresh the feature reference frame from raw sensor data
   void store_ref(const uint8_t* color, const uint16_t* depth,
                  const Mat4& pose) {
     if (!cam.valid || color == nullptr || depth == nullptr) return;
     ref.W = cam.W; ref.H = cam.H;
-    to_gray(color, cam.W, cam.H, ref.gray);
-    depth_to_metres(depth, cam.W, cam.H, cam.depth_scale, ref.depth);
-    shi_tomasi(ref.gray, cam.W, cam.H, ref.corners);
+    load_frame(color, depth, ref.gray, ref.depth, ref.corners);
     ref.c2w = pose;
     ref.valid = true;
   }
 };
+
+// Give every kept buffer the capacity of the camera's frame, so the image
+// calls that follow allocate none.  Capacity only: a page is first touched
+// by the frame that writes it, and frames already held keep their contents.
+void Backend::size_buffers() {
+  if (!cam.valid) return;
+  const size_t n = static_cast<size_t>(cam.W) * cam.H;
+  const size_t corners = max_corners(cam.W, cam.H);
+  auto reserve = [&](RefFrame& f) {
+    f.gray.reserve(n);
+    f.depth.reserve(n);
+    f.corners.reserve(corners);
+  };
+  reserve(ref);
+  cur_gray.reserve(n);
+  cur_depth.reserve(n);
+  cur_corners.reserve(corners);
+  corner_rows.reserve(static_cast<size_t>(kCornerRows) * cam.W);
+  if (!wba_enable) return;
+  // the window holds wba_window frames, and one more while a frame joins
+  const size_t frames = static_cast<size_t>(wba_window) + 1;
+  window.reserve(frames);
+  spare.reserve(frames);
+  while (window.size() + spare.size() < frames) spare.emplace_back();
+  for (WinFrame& w : window) reserve(w.f);
+  for (WinFrame& w : spare) reserve(w.f);
+}
 
 // Push the freshly tracked frame (already in `ref`) into the window, match
 // it against the previous window frames to harvest PairObs, and run the
@@ -500,8 +614,16 @@ void Backend::window_observe(const Mat4& pose) {
   const int idx = static_cast<int>(poses.size()) - 1;
 
   WinFrame wf;
+  if (!spare.empty()) {
+    wf = std::move(spare.back());
+    spare.pop_back();
+  }
   wf.pose_idx = idx;
-  wf.f = ref;                    // copy: ref is refreshed per frame anyway
+  // copy (ref stays the next frame's feature reference) into wf's buffers
+  if (wf.f.gray.capacity() < ref.gray.size() ||
+      wf.f.depth.capacity() < ref.depth.size())
+    grew = true;
+  wf.f = ref;
   wf.f.c2w = pose;
 
   // match against up to two non-adjacent window frames (the adjacent
@@ -514,8 +636,8 @@ void Backend::window_observe(const Mat4& pose) {
     Mat4 T_prev_cur;
     int n_inl = 0;
     std::vector<Vec3> p_prev, p_cur;
-    if (feature_track(cam, prev.f, ref.gray, ref.depth, T_prev_cur, &n_inl,
-                      &p_prev, &p_cur, &ref.corners)) {
+    if (feature_track(cam, prev.f, ref.gray, ref.depth, ref.corners,
+                      T_prev_cur, &n_inl, &p_prev, &p_cur)) {
       PairObs o;
       o.i = prev.pose_idx;
       o.j = idx;
@@ -528,7 +650,10 @@ void Backend::window_observe(const Mat4& pose) {
   }
 
   window.push_back(std::move(wf));
-  while (static_cast<int>(window.size()) > wba_window) window.erase(window.begin());
+  while (static_cast<int>(window.size()) > wba_window) {
+    spare.push_back(std::move(window.front()));
+    window.erase(window.begin());
+  }
   const int lo = window.front().pose_idx;
   obs.erase(std::remove_if(obs.begin(), obs.end(),
                            [lo](const PairObs& o) { return o.i < lo; }),
@@ -726,6 +851,7 @@ void pb_set_camera(void* h, double fx, double fy, double cx, double cy,
   auto* b = static_cast<Backend*>(h);
   std::lock_guard<std::mutex> g(b->mu);
   b->cam = {fx, fy, cx, cy, width, height, depth_scale, true};
+  b->size_buffers();
 }
 
 // color: u8 [H, W, 3] rgb or null; depth: u16 raw or null.
@@ -733,6 +859,7 @@ void pb_process_image_rgbd(void* h, const uint8_t* color,
                            const uint16_t* depth, double timestamp) {
   auto* b = static_cast<Backend*>(h);
   std::lock_guard<std::mutex> g(b->mu);
+  b->grew = false;
   b->poses.push_back(Mat4::identity());
   b->stamps.push_back(timestamp);
   b->store_ref(color, depth, b->poses.back());
@@ -746,6 +873,7 @@ void pb_track_with_icp_pose(void* h, const uint8_t* color,
                             double timestamp) {
   auto* b = static_cast<Backend*>(h);
   std::lock_guard<std::mutex> g(b->mu);
+  b->grew = false;
   Mat4 rel{};
   for (int i = 0; i < 16; ++i) rel.m[i] = pose_rel[i];
   Mat4 prev = b->poses.empty() ? Mat4::identity() : b->poses.back();
@@ -767,17 +895,16 @@ void pb_track_with_orb_feature(void* h, const uint8_t* color,
                                const uint16_t* depth, double timestamp) {
   auto* b = static_cast<Backend*>(h);
   std::lock_guard<std::mutex> g(b->mu);
+  b->grew = false;
   Mat4 prev = b->poses.empty() ? Mat4::identity() : b->poses.back();
   Mat4 pose = prev;
   b->last_track_ok = false;
   b->last_inliers = 0;
   if (b->cam.valid && color != nullptr && depth != nullptr && b->ref.valid) {
-    std::vector<float> gray, depth_m;
-    to_gray(color, b->cam.W, b->cam.H, gray);
-    depth_to_metres(depth, b->cam.W, b->cam.H, b->cam.depth_scale, depth_m);
+    b->load_frame(color, depth, b->cur_gray, b->cur_depth, b->cur_corners);
     Mat4 T_ref_cur;
-    if (feature_track(b->cam, b->ref, gray, depth_m, T_ref_cur,
-                      &b->last_inliers)) {
+    if (feature_track(b->cam, b->ref, b->cur_gray, b->cur_depth,
+                      b->cur_corners, T_ref_cur, &b->last_inliers)) {
       // base pose read from the trajectory (window refinement may have
       // moved it since ref.c2w was copied)
       const Mat4 base = (b->ref_idx >= 0 &&
@@ -808,6 +935,15 @@ int pb_last_track_inliers(void* h) {
   return b->last_inliers;
 }
 
+// 1 when the last image call (process_image_rgbd, track_with_icp_pose,
+// track_with_orb_feature) allocated no frame-sized buffer: its feature pass
+// and window update ran in the buffers kept since set_camera.
+int pb_last_frame_reused(void* h) {
+  auto* b = static_cast<Backend*>(h);
+  std::lock_guard<std::mutex> g(b->mu);
+  return b->grew ? 0 : 1;
+}
+
 // Windowed-refinement knobs (enable, window size, cadence, GN iterations);
 // pass -1 to keep a value.  Default: enabled, window 5, every 2, 4 iters.
 void pb_set_window_ba(void* h, int enable, int window, int every, int iters) {
@@ -818,6 +954,7 @@ void pb_set_window_ba(void* h, int enable, int window, int every, int iters) {
   if (every >= 1) b->wba_every = every;
   if (iters >= 1) b->wba_iters = iters;
   if (!b->wba_enable) { b->window.clear(); b->obs.clear(); }
+  b->size_buffers();
 }
 
 // T_ij: row-major 4x4 float64 measured relative pose between frames i and j.

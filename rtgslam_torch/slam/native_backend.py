@@ -56,7 +56,8 @@ class NativePoseBackend:
             fn.argtypes = argtypes
             fn.restype = None
         for name in ("pb_trajectory_size", "pb_last_track_ok",
-                     "pb_last_track_inliers", "pb_keyframe_size"):
+                     "pb_last_track_inliers", "pb_last_frame_reused",
+                     "pb_keyframe_size"):
             fn = getattr(self._lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p]
@@ -138,6 +139,12 @@ class NativePoseBackend:
 
     def last_track_inliers(self) -> int:
         return int(self._lib.pb_last_track_inliers(self._h))
+
+    def last_frame_reused(self) -> bool:
+        """Whether the last image call ran its feature pass and window
+        update in the frame buffers kept since ``set_camera``, allocating
+        none."""
+        return bool(self._lib.pb_last_frame_reused(self._h))
 
     def add_loop_constraint(self, i: int, j: int, T_ij: np.ndarray,
                             weight: float = 1.0, iterations: int = 50) -> None:

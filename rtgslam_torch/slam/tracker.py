@@ -272,6 +272,14 @@ class Tracker:
         poses, _ = convert_poses(rows[-1:])
         return poses[-1]
 
+    def _mark_backend_reuse(self) -> None:
+        """Count the backend's image calls that allocated no frame buffer
+        (the marker span ``track.backend_reused``); a backend without
+        ``last_frame_reused``, such as the fake, counts none."""
+        reused = getattr(self.orb_backend, "last_frame_reused", None)
+        if perf.ENABLED and reused is not None and reused():
+            perf.mark("track.backend_reused")
+
     def tracking(self, frame: Camera, frame_map: Dict) -> bool:
         """Track one frame and fill ``frame_map`` with its world-space maps
         (``tracking`` :283)."""
@@ -294,6 +302,7 @@ class Tracker:
                         self.curr_frame["color_u8"],
                         self.curr_frame["depth_u16"],
                         self.curr_frame["timestamp"])
+                    self._mark_backend_reuse()
             self.status["initialized"] = True
             pose_t1_w = np.eye(4)
         else:
@@ -312,6 +321,7 @@ class Tracker:
             if self.use_orb_backend:
                 with perf.span("track.backend"):
                     pose_t1_w = self._refine_with_backend(pose_t1_t0, success)
+                    self._mark_backend_reuse()
             else:
                 pose_t1_w = self.pose_es[-1] @ pose_t1_t0
 

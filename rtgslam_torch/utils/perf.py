@@ -89,6 +89,14 @@ def span(name: str):
     return _Span(name)
 
 
+def mark(name: str) -> None:
+    """Record the span ``name`` opened and closed at once: its count
+    counts an event."""
+    if ENABLED:
+        with _Span(name):
+            pass
+
+
 def current() -> Optional[str]:
     """The innermost open span of the calling thread, None outside any."""
     stack = _stack()

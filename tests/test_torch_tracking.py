@@ -201,3 +201,31 @@ def test_tracker_refuses_unported_backends(synthetic_cams, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         ttracker.Tracker(_args(use_gt_pose=False))
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_staged_tracker_counts_reused_backend_calls(synthetic_cams, monkeypatch,
+                                                    native):
+    """With the native backend every ``track.backend`` call records the
+    marker ``track.backend_reused`` (its frame buffers were sized at
+    ``set_camera``); a fake without ``last_frame_reused`` records none."""
+    import torch_parity as tp
+    from rtgslam_torch.slam import pose_backend as tpb
+    from rtgslam_torch.utils import perf
+
+    monkeypatch.setattr(perf, "ENABLED", True)
+    perf.reset()
+    try:
+        args = _args(use_gt_pose=False, use_orb_backend=True,
+                     use_loop_closure=False)
+        backend = tpb.create_backend(args) if native else tpb.FakePoseBackend()
+        if not native:
+            backend.initialize(True)
+        tr = ttracker.Tracker(args, "cpu", orb_backend=backend)
+        for i, cam in enumerate(tp.port_cameras(synthetic_cams[:3])):
+            tr.tracking(cam, tr.map_preprocess(cam, i))
+        report = perf.report()
+    finally:
+        perf.reset()
+    assert report["track.backend"]["count"] == 3
+    assert report.get("track.backend_reused", {}).get("count", 0) == (3 if native else 0)
